@@ -1,10 +1,12 @@
 """Render configuration of the port — the fields of arctic_tpu's
-core/config.py RenderConfig that the default fused frame reads.
+core/config.py RenderConfig that the ported frame paths read.
 
-The frame is the JAX package's default configuration: fused shading, the
-sun-frustum shadow cull, the f16 HDR round and the exact f32 PCF are always
-on, so they are not options here. Pair buffers keep fixed capacities
-(``pair_capacity``), so an overflow stays loud through check_stats.
+The frame is the JAX package's fused configuration: fused shading, the
+sun-frustum shadow cull and the f16 HDR round are always on, so they are
+not options here. The PCF takes the exact f32 runs path unless
+``pcf_row_cap`` asks for the u16-quantised window table with penumbra
+classification. Pair buffers and the penumbra row buffer keep fixed
+capacities, so an overflow stays loud through check_stats.
 """
 
 from __future__ import annotations
@@ -37,6 +39,13 @@ class RenderConfig:
     # Point lights shaded per frame (None = the params' light count).
     static_point_lights: int | None = None
 
+    # PCF penumbra classification (the quantised-table path): 128-px rows
+    # that the min/max shadow pyramid proves fully lit or fully shadowed
+    # emit exact 0/1; only penumbra rows, compacted to this many, run the
+    # per-pixel 25-tap kernel. None = off (the exact f32 runs path).
+    # Overflow is loud: stats carry pcf_rows vs pcf_row_cap.
+    pcf_row_cap: int | None = None
+
     @property
     def tiles_x(self) -> int:
         return -(-self.width // self.tile_w)
@@ -44,6 +53,10 @@ class RenderConfig:
     @property
     def tiles_y(self) -> int:
         return -(-self.height // self.tile_h)
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles_x * self.tiles_y
 
     def pair_capacity(self, clip_slots: int) -> int:
         return _round_up(self.pairs_per_tri * clip_slots + self.pair_reserve, 1024)

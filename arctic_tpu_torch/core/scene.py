@@ -1,5 +1,5 @@
 """Scene / settings data model as dataclasses of tensors — torch port of
-arctic_tpu/core/scene.py (only the fields the default fused frame reads).
+arctic_tpu/core/scene.py (only the fields the ported frame paths read).
 
 Per-frame state (camera, sun, point lights, settings) holds small float32
 tensors that stay on the host: the renderer derives the 4x4 matrices and the
@@ -164,6 +164,23 @@ class SceneBuffers:
     @property
     def device(self) -> torch.device:
         return self.geometry.tri_corner_pos.device
+
+
+@dataclass
+class SunCache:
+    """Shadow products that depend only on (geometry, sun), kept across
+    frames while the camera moves (pipeline.build_sun_cache). The map is
+    rendered in full, with no cull rect, so the cache stays valid for any
+    camera; rendering with it gives the pixels of rendering without it.
+
+    ``lutq`` and ``pyramid`` are built only when the frame reads them (a
+    config with pcf_row_cap); otherwise they are None and the frame takes
+    the exact f32 runs path on ``shadow_map``. The JAX package builds its
+    table always, though only its TPU reads it without a row cap."""
+
+    shadow_map: torch.Tensor  # (S, S) f32 depth
+    lutq: torch.Tensor | None  # (S + 4, pitch) u16 window table (K7)
+    pyramid: torch.Tensor | None  # (M,) i32 packed min / max pyramid
 
 
 def make_camera(eye, rotation, aspect, fov_y=45.0, z_near=0.1, z_far=1000.0) -> Camera:

@@ -192,9 +192,10 @@ def build_buffers(
     materials: Sequence[MaterialImages],
     environment: np.ndarray,  # (H, W, 3) f32 linear radiance
     tri_bucket: int = 1024,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SceneBuffers:
-    """Flatten a scene into tensors on ``device``."""
+    """Flatten a scene into tensors on ``device`` (the card unless the
+    caller asks for the CPU)."""
     pos_l, nrm_l, tan_l, btn_l, uv_l, vobj_l = [], [], [], [], [], []
     idx_l, mat_l = [], []
     vbase = 0

@@ -1,10 +1,18 @@
-"""The default fused frame — torch port of arctic_tpu/models/pipeline.py
-(render_frame_stats with the default RenderConfig; core/config.py).
+"""The fused frame — torch port of arctic_tpu/models/pipeline.py
+(render_frame_stats, build_sun_cache; core/config.py).
 
 shadow pass (sun-cull rect, binning, K1 depth-only raster) -> shade-row
 table (K3) -> camera binning + K1 raster -> G-buffer resolve (K4) -> PCF
 sun shadow -> merged texture + sky tap (K6) -> Cook-Torrance PBR with point
 lights and ambient -> skybox composite -> f16 HDR round, tonemap, gamma, u8.
+
+The PCF takes the exact f32 runs path by default. With
+``RenderConfig.pcf_row_cap`` it takes the quantised path: K7 builds the u16
+window table from K1's row-major depth buffer in place (the JAX package's
+lut_rows raster), a min/max pyramid classifies 128-pixel rows of the
+tile-major pixel stream, and K8 evaluates the compacted penumbra rows. A
+SunCache (build_sun_cache) replaces the shadow pass, table and pyramid
+while the sun and the geometry stay put.
 
 The frame runs eagerly on the device of the scene buffers. Per-frame
 constants (the camera and sun matrices, the light count, post-process
@@ -28,6 +36,7 @@ from arctic_tpu_torch.core.scene import (
     SceneBuffers,
     SceneParams,
     Settings,
+    SunCache,
 )
 from arctic_tpu_torch.ops import cull, raster, raster_tiles, shadow, sky, tonemap
 from arctic_tpu_torch.ops.pbr import dot_cf, outgoing_radiance_cf
@@ -82,7 +91,9 @@ def scene_aabb(wc, tri_valid):
 
 
 def sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config: RenderConfig):
-    """Conservative shadow-tile rect for shadow_pass (ops/cull.py)."""
+    """Conservative shadow-tile rect for shadow_pass and the (2,) window
+    start_y band of the quantised table (ops/cull.py; device tensors, no
+    host sync)."""
     lo, hi = scene_aabb(wc, tri_valid)
     return cull.shadow_cull_rect(
         cam_pv.to(lo.device), sun_pv.to(lo.device), lo, hi, config.shadow_size,
@@ -90,10 +101,13 @@ def sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config: RenderConfig):
     )
 
 
-def shadow_pass(geom: Geometry, sun_clip, config: RenderConfig, cull_rect):
+def shadow_pass(geom: Geometry, sun_clip, config: RenderConfig, cull_rect=None):
     """Depth-only pass from the sun's view (shadow_map_pass.cpp:113-169),
-    front faces culled, over the cull rect's tiles; returns (shadow map
-    (S, S), pairs, pair cap)."""
+    front faces culled, over the cull rect's tiles (None: all of them);
+    returns (shadow map (S, S), pairs, pair cap). The map is a view of K1's
+    row-major (tile-padded) depth buffer with its row pitch: the quantised
+    path's table build reads it in place, which is the JAX package's
+    lut_rows raster (raster_tiles.py:1007)."""
     tri_valid = torch.arange(geom.capacity, device=geom.tri_trs.device) < geom.num_tris
     clipped = raster.near_clip_corners(sun_clip, tri_valid)
     s = config.shadow_size
@@ -138,14 +152,49 @@ def build_shade_rows(setup: raster.TriSetup, geom: Geometry, wc, lsp) -> torch.T
     return raster_tiles.pack_shade_rows(pf, geom.slot_static_rows, setup.capacity)
 
 
+def pcf_shadow(
+    gbuf: torch.Tensor, covered: torch.Tensor, shadow_map: torch.Tensor,
+    config: RenderConfig, lut=None, pyramid=None, lut_y_range=None,
+):
+    """Sun shadow term of every pixel of the (H_pad, W_pad) frame and the
+    penumbra row count (0-dim device tensor; 0 on the runs path).
+
+    On the quantised path the rows that are classified and compacted are
+    the JAX package's: rows of 128 pixels of the TILE-MAJOR pixel stream
+    (row r = pixels 128r .. 128r + 127 of tile r // 32 for 64x64 tiles, two
+    64-pixel screen lines), so the light-space planes go through that view
+    and the result comes back through its inverse. Only covered pixels are
+    consumed (care). Without pcf_row_cap the runs path reads the map alone
+    (a SunCache's table and pyramid go unused)."""
+    x, y, z = gbuf[14], gbuf[15], gbuf[16]
+    if config.pcf_row_cap is None:
+        return shadow.pcf_shadow_proj(shadow_map, x, y, z, with_rows=True)
+    hp, wp = covered.shape
+    th, tw = config.tile_h, config.tile_w
+    ty, tx = hp // th, wp // tw
+
+    def to_rows(p):
+        return p.reshape(ty, th, tx, tw).permute(0, 2, 1, 3).reshape(-1, shadow.ROW)
+
+    rows, pcf_rows = shadow.pcf_shadow_proj(
+        shadow_map, to_rows(x), to_rows(y), to_rows(z), care=to_rows(covered),
+        row_cap=config.pcf_row_cap, with_rows=True, lut=lut, pyramid=pyramid,
+        lut_y_range=lut_y_range,
+    )
+    return rows.reshape(ty, tx, th, tw).permute(0, 2, 1, 3).reshape(hp, wp), pcf_rows
+
+
 def shade_gbuffer(
     buffers: SceneBuffers, params: SceneParams, gbuf: torch.Tensor,
     covered: torch.Tensor, shadow_map: torch.Tensor, config: RenderConfig,
-) -> torch.Tensor:
+    sun_lut=None, sun_pyr=None, lut_y_range=None,
+):
     """forward.hlsl ps_main over the (64, H_pad, W_pad) G-buffer, channel
     first (lane map: [0:3 wp, 3:6 n, 6:9 t, 9:12 b, 12:14 uv, 14:17 light
     space xyz, 24:36 atlas regions, 36:40 mr const, 40:43 nm const, 43:47
-    combined-atlas region]). Returns HDR (3, H_pad, W_pad)."""
+    combined-atlas region]). ``sun_lut`` / ``sun_pyr``: a SunCache's
+    products; ``lut_y_range``: the in-frame table's start_y band. Returns
+    (HDR (3, H_pad, W_pad), penumbra rows)."""
     atlas, env = buffers.atlas, buffers.environment
     dev = gbuf.device
     hp, wp_ = covered.shape
@@ -165,7 +214,9 @@ def shade_gbuffer(
     dz = torch.where(covered, 0.0, dz)
 
     with torch.profiler.record_function("pcf_shadow"):
-        shadow_f = shadow.pcf_shadow_proj(shadow_map, gbuf[14], gbuf[15], gbuf[16])
+        shadow_f, pcf_rows = pcf_shadow(
+            gbuf, covered, shadow_map, config, sun_lut, sun_pyr, lut_y_range
+        )
 
     # ONE tap serves texture AND sky: a covered pixel reads its material
     # quad, an uncovered one its environment quad, from one merged table.
@@ -206,10 +257,11 @@ def shade_gbuffer(
     wo = wo / torch.sqrt(dot_cf(wo, wo))
 
     with torch.profiler.record_function("pbr_lights"):
-        return _light_and_composite(
+        hdr = _light_and_composite(
             params, config, covered, background, wp, n, wo, lit, base_color,
             metalness, roughness,
         )
+    return hdr, pcf_rows
 
 
 def _light_and_composite(
@@ -241,19 +293,26 @@ def _light_and_composite(
 
 
 def render_frame_stats(
-    buffers: SceneBuffers, params: SceneParams, settings: Settings, config: RenderConfig
+    buffers: SceneBuffers, params: SceneParams, settings: Settings, config: RenderConfig,
+    sun_cache: SunCache | None = None,
 ):
     """Full frame -> ((H, W, 3) uint8, raster health stats).
 
-    stats: cam/shadow pairs (0-dim device tensors) and their capacities;
-    pairs > cap means a pair buffer overflowed and fragments were dropped —
-    check_stats() raises then. The pcf_rows / tex_fb_rows stats of the JAX
-    package are reported inactive (0 of 1), as its default config does."""
+    stats: cam/shadow pairs and penumbra rows (0-dim device tensors) and
+    their capacities; more than the capacity means a buffer overflowed and
+    the frame is wrong — check_stats() raises then. pcf_row_cap is 1 when
+    classification is off (pcf_rows is then 0); tex_fb_rows of the JAX
+    package is reported inactive (0 of 1), as its default config does.
+
+    ``sun_cache`` (a build_sun_cache result) replaces the shadow pass, the
+    window table and the pyramid while the sun and the geometry are
+    unchanged; the frame's pixels are the same."""
     use_full_f32()
     geom = buffers.geometry
     dev = buffers.device
     sun_pv = params.sun.proj_view()
     cam_pv = params.camera.proj_view()
+    sun_lut = sun_pyr = lut_y_range = None
 
     # record_function ranges name the frame graph's passes in profiler
     # traces (the JAX package's named_scope labels).
@@ -261,8 +320,13 @@ def render_frame_stats(
         wc = world_corners(geom)
         sun_clip = corners_clip(wc, sun_pv)
         tri_valid = torch.arange(geom.capacity, device=dev) < geom.num_tris
-        cull_rect = sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
-        shadow_map, sh_pairs, sh_cap = shadow_pass(geom, sun_clip, config, cull_rect)
+        if sun_cache is None:
+            cull_rect, lut_y_range = sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
+            shadow_map, sh_pairs, sh_cap = shadow_pass(geom, sun_clip, config, cull_rect)
+        else:
+            shadow_map = sun_cache.shadow_map
+            sun_lut, sun_pyr = sun_cache.lutq, sun_cache.pyramid
+            sh_pairs, sh_cap = torch.zeros((), dtype=torch.int32, device=dev), 1
 
     with torch.profiler.record_function("forward_visibility"):
         clipped = raster.near_clip_corners(corners_clip(wc, cam_pv), tri_valid)
@@ -272,7 +336,10 @@ def render_frame_stats(
             setup, shade_rows, config.height, config.width, config
         )
     with torch.profiler.record_function("forward_shade_skybox"):
-        hdr = shade_gbuffer(buffers, params, gbuf, ibuf >= 0, shadow_map, config)
+        hdr, pcf_rows = shade_gbuffer(
+            buffers, params, gbuf, ibuf >= 0, shadow_map, config, sun_lut, sun_pyr,
+            lut_y_range,
+        )
 
     with torch.profiler.record_function("post_process"):
         # R16G16B16A16_FLOAT storage rounding (renderer.cpp:128-144).
@@ -285,18 +352,46 @@ def render_frame_stats(
         "cam_pair_cap": config.pair_capacity(setup.capacity),
         "shadow_pairs": sh_pairs,
         "shadow_pair_cap": sh_cap,
-        "pcf_rows": 0,
-        "pcf_row_cap": 1,
+        "pcf_rows": pcf_rows,
+        "pcf_row_cap": pcf_row_capacity(config),
         "tex_fb_rows": 0,
         "tex_fb_cap": 1,
     }
     return img.contiguous(), stats
 
 
-def render_frame(buffers, params, settings, config: RenderConfig) -> torch.Tensor:
+def render_frame(buffers, params, settings, config: RenderConfig, sun_cache=None) -> torch.Tensor:
     """Full frame -> (H, W, 3) uint8 (Renderer::render_frame)."""
-    img, _ = render_frame_stats(buffers, params, settings, config)
+    img, _ = render_frame_stats(buffers, params, settings, config, sun_cache)
     return img
+
+
+def pcf_row_capacity(config: RenderConfig) -> int:
+    """The penumbra row capacity of this config (1 = classification off;
+    pcf_rows is then always 0)."""
+    if config.pcf_row_cap is None:
+        return 1
+    pn = config.num_tiles * config.tile_h * config.tile_w
+    return shadow.effective_row_cap(pn, config.pcf_row_cap)
+
+
+def build_sun_cache(buffers: SceneBuffers, params: SceneParams, config: RenderConfig):
+    """Render the sun's full shadow map (no cull rect: the cache must hold
+    for any camera) and, when the frame reads them (pcf_row_capacity > 1),
+    its quantised window table (K7) and min/max pyramid. Returns
+    (SunCache, stats with shadow_pairs / shadow_pair_cap). Build it again
+    when the sun or the geometry changes."""
+    use_full_f32()
+    geom = buffers.geometry
+    with torch.profiler.record_function("shadow_pass"):
+        sun_clip = corners_clip(world_corners(geom), params.sun.proj_view())
+        shadow_map, sh_pairs, sh_cap = shadow_pass(geom, sun_clip, config)
+        lutq = pyr = None
+        if pcf_row_capacity(config) > 1:
+            lutq = shadow.build_window_lut_q(shadow_map)
+            pyr, _ = shadow.build_shadow_pyramid(shadow_map)
+    stats = {"shadow_pairs": sh_pairs, "shadow_pair_cap": sh_cap}
+    return SunCache(shadow_map=shadow_map, lutq=lutq, pyramid=pyr), stats
 
 
 def check_stats(stats) -> None:
@@ -311,18 +406,57 @@ def check_stats(stats) -> None:
                 f"the frame is incomplete. Raise RenderConfig.pairs_per_tri / "
                 f"pair_reserve."
             )
+    rows = int(stats.get("pcf_rows", 0))
+    cap = int(stats.get("pcf_row_cap", 1))
+    if rows > cap:
+        raise RenderError(
+            f"PCF penumbra rows overflowed the compaction buffer ({rows} rows > "
+            f"capacity {cap}): overflowing rows got another row's shadow values. "
+            f"Raise RenderConfig.pcf_row_cap."
+        )
 
 
-def make_renderer_stats(config: RenderConfig, device: torch.device | str):
+def _check_device(buffers: SceneBuffers, device: torch.device) -> None:
+    if buffers.device.type != device.type:
+        raise RenderError(f"scene buffers on {buffers.device}, renderer on {device}")
+
+
+def make_renderer_stats(config: RenderConfig, device: torch.device | str = "cuda"):
     """Frame function ``f(buffers, params, settings) -> (img, stats)`` for
-    scene buffers on ``device``; per-frame params and settings stay on the
-    host."""
+    scene buffers on ``device`` (the card unless the caller asks for the
+    CPU); per-frame params and settings stay on the host."""
     use_full_f32()
     device = torch.device(device)
 
     def render(buffers, params, settings):
-        if buffers.device.type != device.type:
-            raise RenderError(f"scene buffers on {buffers.device}, renderer on {device}")
+        _check_device(buffers, device)
         return render_frame_stats(buffers, params, settings, config)
+
+    return functools.update_wrapper(render, render_frame_stats)
+
+
+def make_sun_cache_builder(config: RenderConfig, device: torch.device | str = "cuda"):
+    """``f(buffers, params) -> (SunCache, stats)`` for scene buffers on
+    ``device`` (build_sun_cache)."""
+    use_full_f32()
+    device = torch.device(device)
+
+    def build(buffers, params):
+        _check_device(buffers, device)
+        return build_sun_cache(buffers, params, config)
+
+    return functools.update_wrapper(build, build_sun_cache)
+
+
+def make_cached_renderer_stats(config: RenderConfig, device: torch.device | str = "cuda"):
+    """Frame function ``f(buffers, params, settings, sun_cache) -> (img,
+    stats)``: the camera-motion path of a session with a stationary sun,
+    with no shadow raster, table build or pyramid in the frame."""
+    use_full_f32()
+    device = torch.device(device)
+
+    def render(buffers, params, settings, sun_cache):
+        _check_device(buffers, device)
+        return render_frame_stats(buffers, params, settings, config, sun_cache)
 
     return functools.update_wrapper(render, render_frame_stats)

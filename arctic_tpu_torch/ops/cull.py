@@ -146,7 +146,13 @@ def shadow_cull_rect(
 ):
     """Conservative inclusive shadow-map TILE rect (tx0, ty0, tx1, ty1) of
     0-dim int64 tensors covering every texel any shaded pixel's PCF window
-    can read; an empty intersection gives tx1 < tx0 (all tiles culled)."""
+    can read; an empty intersection gives tx1 < tx0 (all tiles culled).
+
+    Returns (rect, y_band): y_band is a (2,) int32 device tensor, the
+    inclusive [y_lo, y_hi] bound on every consumed pixel's PCF window
+    start_y (padded coords), for shadow.build_window_lut_q's band. Taken
+    from the unextended bounds: a window wrapping over a map edge keeps its
+    start_y in the band."""
     if margin_texels is None:
         margin_texels = 0.0002 * shadow_size + 8.0
     pts, ok = intersection_points(cam_pv, aabb_lo, aabb_hi)
@@ -179,5 +185,8 @@ def shadow_cull_rect(
     any_ok = torch.any(ok)
     tx1 = torch.where(any_ok & (px_hi >= px_lo), tx1, zero - 1)
     ty1 = torch.where(any_ok & (py_hi >= py_lo), ty1, zero - 1)
-    return tx0, ty0, tx1, ty1
+    # Consumed start_y = clip(floor(py - 0.5) + 1, 0, s) lies in
+    # [py - 1.5, py + 1]; py_lo / py_hi already carry the margin.
+    y_band = torch.stack([torch.floor(py_lo - 1.5), torch.ceil(py_hi + 1.0)])
+    return (tx0, ty0, tx1, ty1), torch.clamp(y_band, 0.0, s).to(torch.int32)
 

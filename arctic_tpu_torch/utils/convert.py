@@ -1,6 +1,6 @@
 """Parameter bridge: the JAX package's SceneBuffers / SceneParams /
-Settings -> this package's dataclasses of tensors on a device, and its
-RenderConfig -> this package's.
+Settings / SunCache -> this package's dataclasses of tensors on a device,
+and its RenderConfig -> this package's.
 
 Leaves are read with ``np.asarray`` (so this module imports no JAX; the
 caller's objects carry it). bf16 leaves arrive as ``ml_dtypes.bfloat16``
@@ -27,8 +27,10 @@ from arctic_tpu_torch.core.scene import (
     SceneBuffers,
     SceneParams,
     Settings,
+    SunCache,
     TextureAtlas,
 )
+from arctic_tpu_torch.ops.shadow import lut_pitch
 
 
 def tensor(leaf, device="cpu") -> torch.Tensor:
@@ -94,16 +96,52 @@ def settings(js) -> Settings:
 def render_config(jc) -> RenderConfig:
     """JAX-package RenderConfig -> RenderConfig. Raises ValueError when a
     field the port does not carry is set away from its default there (a
-    path the port does not have)."""
+    path the port does not have). ``lut_y_skip`` is accepted either way: it
+    only picks which table rows no window reads are written, so the pixels
+    are the same (the port always writes the band)."""
     kept = {f.name for f in dataclasses.fields(RenderConfig)}
     default = type(jc)()
     off = [
         f.name for f in dataclasses.fields(jc)
-        if f.name not in kept and getattr(jc, f.name) != getattr(default, f.name)
+        if f.name not in kept and f.name != "lut_y_skip"
+        and getattr(jc, f.name) != getattr(default, f.name)
     ]
     if off:
         raise ValueError(f"RenderConfig options the port does not have: {off}")
     return RenderConfig(**{name: getattr(jc, name) for name in kept})
+
+
+def window_table_q(jlut, s: int) -> np.ndarray:
+    """The JAX package's u16-quantised window LUT ((N, 128) i32: 16x8-texel
+    blocks at y-stride 12 / x-stride 4, two texels per lane; shadow.py
+    build_window_lut_q / window_row_index_q) decoded into this package's
+    table: the (s + 4, lut_pitch(s)) u16 padded map, 0 past column s + 4.
+    Each padded texel is read from the block of the window that starts at
+    it (or at s, for the last 3 rows / columns)."""
+    lut = np.asarray(jlut).view(np.uint32)
+    xb = -(-(-(-(s + 4 + 3) // 128)) // 8) * 8  # shadow.lut_q_xb
+    pos = np.arange(s + 4)
+    start = np.minimum(pos, s)
+    qy, yoff = start // 12, start % 12
+    qx, xoff = start // 4, start % 4
+    row = (qy * 16 * xb)[:, None] + (((qx // 2) % 16) * xb + qx // 32)[None, :]
+    br = (yoff + pos - start)[:, None]  # texel row within the 16-row block
+    bc = (xoff + pos - start)[None, :]  # texel column within the 8-col block
+    lane = 64 * (qx % 2)[None, :] + 4 * br + bc // 2
+    q = (lut[row, lane] >> (16 * (bc % 2)).astype(np.uint32)) & 0xFFFF
+    out = np.zeros((s + 4, lut_pitch(s)), np.uint16)
+    out[:, : s + 4] = q
+    return out
+
+
+def sun_cache(jc, device="cpu") -> SunCache:
+    """JAX-package SunCache -> SunCache: the map and the pyramid as they
+    are (same layouts), the window LUT decoded by window_table_q."""
+    smap = tensor(jc.shadow_map, device)
+    s = smap.shape[0]
+    lutq = None if jc.lutq is None else torch.from_numpy(window_table_q(jc.lutq, s)).to(device)
+    pyr = None if jc.pyramid is None else tensor(jc.pyramid, device)
+    return SunCache(shadow_map=smap, lutq=lutq, pyramid=pyr)
 
 
 def _nested(x, device):

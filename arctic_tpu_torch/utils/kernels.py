@@ -1,7 +1,8 @@
 """Build, load and call the port's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with nvcc into ONE shared library with a
-plain C interface, loaded through ctypes (no PyTorch headers: a build takes
+All ``csrc/*.cu`` files compile with nvcc (one process per source, all
+started together) and link into ONE shared library with a plain C
+interface, loaded through ctypes (no PyTorch headers: a build takes
 seconds). The build happens at first use, into ``build/arctic_tpu_torch/``
 beside the package, under a file name carrying the hash of the sources and
 flags. A missing nvcc or a failed compile raises; nothing falls back.
@@ -32,19 +33,22 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "arctic_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 # Where nvcc is looked for after PATH and $CUDA_HOME/bin.
 NVCC_FALLBACKS = ("/usr/local/cuda/bin/nvcc",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the launchers; each returns its cudaError_t as an int.
 _SIGNATURES = {
     "arctic_raster_tiles": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "arctic_pack_shade_rows": (_P, _P, _I, _I, _P, _P),
     "arctic_select_interp": (_P, _P, _I, _I, _P, _P),
     "arctic_tap_resolve": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    "arctic_window_lut_q": (_P, _I, _I, _P, _I, _P, _P),
+    "arctic_pcf_eval": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P),
 }
 
 # Every registered kernel wrapper, in registration order.
@@ -88,18 +92,28 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"kernel build failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build sees all of it or none
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        cus = [s for s in sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp, f"{s.stem}.o") for s in cus]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(cus, objs)]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for cmd in compiles
+        ]
+        errs = [proc.communicate()[1] for proc in procs]  # every process ends
+        for cmd, proc, err in zip(compiles, procs, errs):
+            _raise_on_failure(cmd, proc.returncode, err)
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, "-shared", "-o", lib, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _raise_on_failure(link, proc.returncode, proc.stderr)
+        os.replace(lib, out)  # atomic: a concurrent build sees all of it or none
     return out
+
+
+def _raise_on_failure(cmd, returncode: int, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"kernel build failed (exit {returncode}): {' '.join(cmd)}\n{stderr}")
 
 
 @functools.cache

@@ -3,30 +3,43 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure (exit code != 0):
+Two frame paths are driven: the default one (exact f32 PCF; kernels K1
+raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve) and the
+quantised PCF path of RenderConfig.pcf_row_cap (the same four plus K7
+window_lut_q and K8 pcf_eval), with and without a sun cache. Phases, each
+of which raises on failure (exit code != 0):
 
 1. device check: refuses to run without CUDA (no CPU fallback); prints the
    card's name and power limit as nvidia-smi reports them;
-2. kernel build: compiles csrc/*.cu with nvcc (sm_90a, -fmad=false);
-3. entry frame: Cornell at 256x192 with a 256^2 shadow map through the
-   port's renderer on the card. All four kernels must launch; the frame must
-   be within 1 u8 LSB of the port's CPU frame (plain torch versions) on < 1%
-   of the pixels and >= 40 dB PSNR against the f64 golden oracle;
-   check_stats must pass;
+2. kernel build: compiles csrc/*.cu with nvcc (sm_90a, -fmad=false), one
+   process per source;
+3. entry frames: Cornell at 256x192 with a 256^2 shadow map through the
+   port's renderer on the card, on the default path and on the quantised
+   path with pcf_row_cap=384 (every row). Each path must launch each of its
+   kernels; each frame must be within 1 u8 LSB of the port's CPU frame
+   (plain torch versions) on < 1% of the pixels, with equal pair stats, and
+   >= 40 dB PSNR against the f64 golden oracle; check_stats must pass;
 4. real size: the Sponza-class scene (251,500 tris) at 1920x1080 with a
    4000^2 shadow map, ACES, 4 static point lights, the bench viewpoint and
-   light rig; 5 fly-through frames, each passing check_stats and not black.
-   Launch counts are zeroed right before these frames and read right after;
+   light rig; 5 fly-through frames on the default path, each passing
+   check_stats and not black. Launch counts are zeroed right before each
+   path's frames and read right after;
+4b. the quantised path at real size: frame 0 with every row in the cap
+   gives pcf_rows; the cap becomes 32 * ceil(1.4 * pcf_rows / 32), frame 0
+   at that cap must be bit-identical, then the 5-frame fly-through;
+4c. the cached sun at real size: build_sun_cache, then the 5 frames with
+   the cache, each within 1 LSB of the uncached frame of 4b;
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded): bit-exact
-   equality, and CUDA-event times of kernel and plain version at the
-   real-size shapes.
+   equality, CUDA-event times of kernel and plain version at the real-size
+   shapes, and each kernel's bound on these inputs (bytes over 3.35 TB/s
+   or f32 operations over 67 TFLOP/s, whichever is larger).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Frames are saved under build/chip_smoke/ as .npy.
-``--profile`` adds a torch.profiler pass over two real-size frames (busy
-share, per-pass device time, top kernels; these lines, the profiler's table
-and a trace in build/chip_smoke/).
+``--profile`` adds a torch.profiler pass over two real-size frames of each
+path (busy share, per-pass device time, top kernels; these lines, the
+profiler's table and a trace in build/chip_smoke/, one file per path).
 """
 
 from __future__ import annotations
@@ -50,6 +63,16 @@ REAL_LIGHTS = [
     ((12.0, 3.0, 4.0), (30.0, 8.0, 8.0)),
 ]
 FLY_FRAMES = 5
+# Every 128-pixel row of the entry frame: 4 x 3 tiles of 64^2 = 32 rows each.
+ENTRY_ROWS = 384
+# Penumbra row cap headroom over frame 0's count at real size.
+CAP_MARGIN = 1.4
+DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve")
+QUANT_PATH = DEFAULT_PATH + ("window_lut_q", "pcf_eval")
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
+# f32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
@@ -57,14 +80,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def entry_scene(device):
+def entry_scene(device, pcf_row_cap=None):
     from arctic_tpu_torch.core.config import RenderConfig
     from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
     from arctic_tpu_torch.io.build import build_buffers
     from arctic_tpu_torch.io.procedural import cornell_like_scene
 
     w, h, s = ENTRY["width"], ENTRY["height"], ENTRY["shadow"]
-    config = RenderConfig(width=w, height=h, shadow_size=s)
+    config = RenderConfig(width=w, height=h, shadow_size=s, pcf_row_cap=pcf_row_cap)
     scene = cornell_like_scene()
     bufs = build_buffers(*scene, tri_bucket=256, device=device)
     params = default_scene_params(aspect=w / h)
@@ -98,46 +121,56 @@ def golden_frame(scene, params, settings, config):
     )
 
 
-def run_entry(device):
-    """Entry frame on ``device``; returns (img, recorded kernel calls)."""
+def check_launches(counts, path, label):
+    """Fail unless every kernel of ``path`` launched in the run just read."""
+    missing = [k for k in path if counts[k] < 1]
+    if missing:
+        raise RuntimeError(f"{label}: kernels of the path never launched: {missing} ({counts})")
+
+
+def run_entry(device, pcf_row_cap=None):
+    """Entry frame on ``device`` (the quantised path with ``pcf_row_cap``);
+    returns (img, recorded kernel calls)."""
     import numpy as np
     import torch
 
     from arctic_tpu_torch.models import golden, pipeline
     from arctic_tpu_torch.utils import kernels
 
-    config, scene, bufs, params, settings = entry_scene(device)
+    label = "entry" if pcf_row_cap is None else "quant entry"
+    config, scene, bufs, params, settings = entry_scene(device, pcf_row_cap)
     kernels.reset_launch_counts()
     with kernels.record_calls() as calls:
         img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
-        if img.is_cuda:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    log(f"entry frame launches: {counts}")
-    if img.is_cuda and min(counts.values()) < 1:
-        raise RuntimeError(f"entry frame did not launch every kernel: {counts}")
+    log(f"{label} frame launches: {counts}")
+    check_launches(counts, DEFAULT_PATH if pcf_row_cap is None else QUANT_PATH, label)
     pipeline.check_stats(stats)
     img = img.cpu().numpy()
 
-    cpu_bufs = entry_scene("cpu")[2]
+    cpu_bufs = entry_scene("cpu", pcf_row_cap)[2]
     img_cpu, stats_cpu = pipeline.render_frame_stats(cpu_bufs, params, settings, config)
     img_cpu = img_cpu.numpy()
     diff = np.abs(img.astype(np.int32) - img_cpu.astype(np.int32))
     frac = float((diff > 0).mean())
-    log(f"entry frame vs port CPU frame: max {diff.max()} LSB on {frac:.4%} of pixels")
+    log(f"{label} frame vs port CPU frame: max {diff.max()} LSB on {frac:.4%} of pixels")
     if diff.max() > 1 or frac >= 0.01:
-        raise RuntimeError("entry frame differs from the CPU frame beyond 1 LSB / 1%")
+        raise RuntimeError(f"{label} frame differs from the CPU frame beyond 1 LSB / 1%")
     s_dev = {k: int(v) for k, v in stats.items()}
     s_cpu = {k: int(v) for k, v in stats_cpu.items()}
-    log(f"entry stats: {s_dev}")
-    if s_dev != s_cpu:
-        raise RuntimeError(f"entry stats differ from the CPU run: {s_cpu}")
+    log(f"{label} stats: {s_dev}; pcf_rows {s_dev['pcf_rows']} on the card, "
+        f"{s_cpu['pcf_rows']} on the CPU")
+    pairs = [k for k in s_dev if "pair" in k]
+    if any(s_dev[k] != s_cpu[k] for k in pairs):
+        raise RuntimeError(f"{label} pair stats differ from the CPU run: {s_cpu}")
     db = golden.psnr(img, golden_frame(scene, params, settings, config))
-    log(f"entry frame PSNR vs f64 golden oracle: {db:.2f} dB")
+    log(f"{label} frame PSNR vs f64 golden oracle: {db:.2f} dB")
     if db < 40.0:
-        raise RuntimeError(f"entry frame PSNR {db:.2f} dB < 40 dB")
+        raise RuntimeError(f"{label} frame PSNR {db:.2f} dB < 40 dB")
     os.makedirs(OUT_DIR, exist_ok=True)
-    np.save(os.path.join(OUT_DIR, "chip_smoke_entry.npy"), img)
+    name = "entry" if pcf_row_cap is None else "entry_quant"
+    np.save(os.path.join(OUT_DIR, f"chip_smoke_{name}.npy"), img)
     return img, calls
 
 
@@ -162,28 +195,75 @@ def real_params(i: int):
     return params, Settings(tm_method=TM_ACES, gamma=_f32(2.2), exposure=_f32(1.0))
 
 
-def run_real(device, profile: bool = False):
-    """Real-size fly-through; returns (summary dict, recorded kernel calls,
-    launch counts of the timed frames)."""
-    import numpy as np
+def real_config(pcf_row_cap=None):
+    from arctic_tpu_torch.core.config import RenderConfig
+
+    return RenderConfig(
+        width=REAL["width"], height=REAL["height"], shadow_size=REAL["shadow"],
+        static_point_lights=4, pcf_row_cap=pcf_row_cap,
+    )
+
+
+def real_buffers(device):
     import torch
 
-    from arctic_tpu_torch.core.config import RenderConfig
     from arctic_tpu_torch.io.build import build_buffers
     from arctic_tpu_torch.io.procedural import sponza_like_scene
-    from arctic_tpu_torch.models import pipeline
-    from arctic_tpu_torch.utils import kernels
 
-    config = RenderConfig(
-        width=REAL["width"], height=REAL["height"], shadow_size=REAL["shadow"],
-        static_point_lights=4,
-    )
     t0 = time.perf_counter()
     bufs = build_buffers(*sponza_like_scene(), device=device)
     torch.cuda.synchronize()
     log(f"real-size scene build: {bufs.geometry.num_tris} tris, capacity "
         f"{bufs.geometry.capacity}, {time.perf_counter() - t0:.1f} s")
-    render = pipeline.make_renderer_stats(config, device)
+    return bufs
+
+
+def fly_through(render, bufs, frames, path, label, *extra):
+    """Time ``render`` over the frames with the launch counts zeroed right
+    before and read right after; returns (ms list, stats list, frames on the
+    host, launch counts, (peak bytes, bytes already allocated before the
+    frames: the script's own retained tensors, not the path's))."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    times, all_stats, imgs = [], [], []
+    for params, settings in frames:
+        t = time.perf_counter()
+        img, stats = render(bufs, params, settings, *extra)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        all_stats.append(stats)
+        imgs.append(img)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label} launches over {len(frames)} frames: {counts}")
+    check_launches(counts, path, label)
+    for st in all_stats:
+        pipeline.check_stats(st)
+    return times, all_stats, [im.cpu().numpy() for im in imgs], counts, (peak, resident)
+
+
+def _mem(mem) -> str:
+    peak, resident = mem
+    return (f"peak memory {peak} B ({resident} B allocated before the frames, "
+            f"{peak - resident} B above that)")
+
+
+def run_real(device, bufs, profile: bool = False):
+    """Real-size fly-through on the default path; returns (summary dict,
+    recorded kernel calls, launch counts of the timed frames)."""
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    render = pipeline.make_renderer_stats(real_config(), device)
 
     params, settings = real_params(0)
     with kernels.record_calls() as calls:  # warm-up frame; its inputs feed phase 5
@@ -192,47 +272,124 @@ def run_real(device, profile: bool = False):
     pipeline.check_stats(stats)
 
     frames = [real_params(i) for i in range(FLY_FRAMES)]
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    times, all_stats = [], []
-    for params, settings in frames:
-        t = time.perf_counter()
-        img, stats = render(bufs, params, settings)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        all_stats.append(stats)
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"real-size launches over {FLY_FRAMES} frames: {counts}")
-    if min(counts.values()) < 1:
-        raise RuntimeError(f"real-size frames did not launch every kernel: {counts}")
-    for st in all_stats:
-        pipeline.check_stats(st)
+    times, all_stats, imgs, counts, mem = fly_through(
+        render, bufs, frames, DEFAULT_PATH, "real-size"
+    )
     s = {k: int(v) for k, v in all_stats[-1].items()}
     if profile:
-        profile_frames(render, bufs, frames[:2])
-    frame = img.cpu().numpy()
+        profile_frames(render, bufs, frames[:2], "default")
+    frame = imgs[-1]
     if frame.shape != (REAL["height"], REAL["width"], 3) or frame.mean() < 5.0:
         raise RuntimeError(f"real-size frame is wrong: shape {frame.shape}, mean {frame.mean():.2f}")
     np.save(os.path.join(OUT_DIR, "chip_smoke_real.npy"), frame)
     summary = dict(
         ms_per_frame_median=statistics.median(times), ms_per_frame=times,
-        max_memory_allocated=peak, stats=s, frame_mean=float(frame.mean()),
+        max_memory_allocated=mem[0], stats=s, frame_mean=float(frame.mean()),
     )
     log(f"real-size frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
-        f"(all {['%.3f' % t for t in times]}), peak memory {peak} B, stats {s}")
+        f"(all {['%.3f' % t for t in times]}), {_mem(mem)}, stats {s}")
     return summary, calls, counts
+
+
+def run_real_quant(device, bufs, profile: bool = False):
+    """The quantised PCF path at real size: frame 0 with every row in the
+    cap, then at the tight cap (bit-identical), then the fly-through.
+    Returns (summary, recorded calls of the tight-cap frame 0, launch
+    counts of the fly-through, its frames on the host, its config)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    config = real_config()
+    every = config.num_tiles * config.tile_h * config.tile_w // 128
+    config = dataclasses.replace(config, pcf_row_cap=every)
+    params, settings = real_params(0)
+    img_full, stats = pipeline.render_frame_stats(bufs, params, settings, config)
+    torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+    used = int(stats["pcf_rows"])
+    cap = 32 * math.ceil(CAP_MARGIN * used / 32)
+    log(f"quant real-size frame 0: pcf_rows {used} of {every} rows; cap -> {cap}")
+    config = dataclasses.replace(config, pcf_row_cap=cap)
+    render = pipeline.make_renderer_stats(config, device)
+    with kernels.record_calls() as calls:  # its inputs feed phase 5
+        img, stats = render(bufs, params, settings)
+        torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+    if not torch.equal(img, img_full):
+        raise RuntimeError("quant frame 0 differs between the full and the tight row cap")
+    log(f"quant real-size frame 0 at cap {cap}: bit-identical to the full-cap frame")
+
+    frames = [real_params(i) for i in range(FLY_FRAMES)]
+    times, all_stats, imgs, counts, mem = fly_through(
+        render, bufs, frames, QUANT_PATH, "quant real-size"
+    )
+    if profile:
+        profile_frames(render, bufs, frames[:2], "quant")
+    rows = [int(st["pcf_rows"]) for st in all_stats]
+    if imgs[-1].mean() < 5.0:
+        raise RuntimeError(f"quant real-size frame is wrong: mean {imgs[-1].mean():.2f}")
+    summary = dict(ms_per_frame_median=statistics.median(times), ms_per_frame=times,
+                   pcf_rows=rows, pcf_row_cap=int(all_stats[0]["pcf_row_cap"]),
+                   max_memory_allocated=mem[0])
+    log(f"quant real-size frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
+        f"(all {['%.3f' % t for t in times]}), pcf_rows {rows} of cap "
+        f"{summary['pcf_row_cap']}, {_mem(mem)}")
+    return summary, calls, counts, imgs, config
+
+
+def run_cached(device, bufs, config, uncached, profile: bool = False):
+    """The cached sun at real size: the cache build, then the fly-through
+    with the cache; each frame within 1 LSB of the uncached one."""
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+
+    build = pipeline.make_sun_cache_builder(config, device)
+    render = pipeline.make_cached_renderer_stats(config, device)
+    frames = [real_params(i) for i in range(FLY_FRAMES)]
+    t = time.perf_counter()
+    cache, cstats = build(bufs, frames[0][0])
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t) * 1e3
+    pairs, cap = int(cstats["shadow_pairs"]), int(cstats["shadow_pair_cap"])
+    log(f"sun cache build: {build_ms:.3f} ms, shadow pairs {pairs} of {cap}")
+    if pairs > cap:
+        raise RuntimeError("the sun cache's shadow pass overflowed its pair buffer")
+    times, all_stats, imgs, _, mem = fly_through(
+        render, bufs, frames, DEFAULT_PATH + ("pcf_eval",), "cached real-size", cache
+    )
+    if profile:
+        profile_frames(render, bufs, frames[:2], "cached", cache)
+    diffs = []
+    for img, ref in zip(imgs, uncached):
+        d = np.abs(img.astype(np.int32) - ref.astype(np.int32))
+        diffs.append((int(d.max()), int((d.max(axis=2) > 0).sum())))
+    log(f"cached vs uncached frames: (max LSB, pixels that differ) {diffs}")
+    if max(m for m, _ in diffs) > 1:
+        raise RuntimeError("a cached-sun frame differs from its uncached frame by more than 1 LSB")
+    summary = dict(build_ms=build_ms, ms_per_frame_median=statistics.median(times),
+                   ms_per_frame=times, diffs=diffs,
+                   pcf_rows=[int(st["pcf_rows"]) for st in all_stats])
+    log(f"cached real-size frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
+        f"(all {['%.3f' % t for t in times]}), pcf_rows {summary['pcf_rows']}, {_mem(mem)}")
+    return summary
 
 
 RANGES = ("shadow_pass", "forward_visibility", "forward_shade_skybox", "pcf_shadow",
           "pbr_lights", "post_process")
 
 
-def profile_frames(render, bufs, frames) -> None:
-    """torch.profiler over real-size frames: device kernel time and busy
-    share, host time and device span of each frame-graph pass
+def profile_frames(render, bufs, frames, path: str, *extra) -> None:
+    """torch.profiler over real-size frames of one path: device kernel time
+    and busy share, host time and device span of each frame-graph pass
     (record_function ranges) and the top kernels; the table and a chrome
-    trace go to build/chip_smoke/."""
+    trace go to build/chip_smoke/ under the path's name."""
     import collections
 
     import torch
@@ -242,7 +399,7 @@ def profile_frames(render, bufs, frames) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for params, settings in frames:
-            render(bufs, params, settings)
+            render(bufs, params, settings, *extra)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     n = len(frames)
@@ -259,21 +416,21 @@ def profile_frames(render, bufs, frames) -> None:
             count[e.name] += 1
     busy_ms = sum(kernels_us.values()) / 1e3
     lines = [
-        f"profile: {n} frames, wall {wall_ms / n:.3f} ms/frame with the profiler on, "
+        f"profile {path}: {n} frames, wall {wall_ms / n:.3f} ms/frame with the profiler on, "
         f"device kernel time {busy_ms / n:.3f} ms/frame, busy share {busy_ms / wall_ms:.4f}, "
         f"{sum(count.values()) // n} device ops/frame"
     ]
     for rng in RANGES:
-        lines.append(f"profile range {rng}: host {host_us[rng] / 1e3 / n:.3f} ms/frame, "
+        lines.append(f"profile {path} range {rng}: host {host_us[rng] / 1e3 / n:.3f} ms/frame, "
                      f"device span {span_us[rng] / 1e3 / n:.3f} ms/frame")
     for name, us in kernels_us.most_common(15):
-        lines.append(f"profile kernel {us / 1e3 / n:8.3f} ms/frame x{count[name] // n:5d}  {name[:100]}")
+        lines.append(f"profile {path} kernel {us / 1e3 / n:8.3f} ms/frame x{count[name] // n:5d}  {name[:100]}")
     for line in lines:
         log(line)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{path}.txt"), "w") as f:
         f.write("\n".join(lines) + "\n\n")
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "chip_smoke_trace.json"))
+    prof.export_chrome_trace(os.path.join(OUT_DIR, f"chip_smoke_trace_{path}.json"))
 
 
 def _tensors(out):
@@ -312,10 +469,83 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_kernels(calls, label: str, timed: bool):
-    """Each recorded call: kernel vs plain version on the same inputs.
-    Returns {kernel: {"max_abs_err", "ms", "plain_ms"}} (times summed over
-    the kernel's calls in one frame)."""
+def _distinct(idx, size: int) -> int:
+    """How many distinct values in [0, size) the index tensor holds."""
+    import torch
+
+    seen = torch.zeros(size, dtype=torch.bool, device=idx.device)
+    seen[idx.reshape(-1).long()] = True
+    return int(seen.sum())
+
+
+def work(name, args, kw):
+    """(bytes, f32 operations) that one call's function needs on these
+    inputs: each input byte it must read once (distinct table rows and
+    texels only), each output byte written once, and the arithmetic its
+    data needs (pairs actually binned, pixels actually covered, penumbra
+    rows actually listed)."""
+    import torch
+
+    from arctic_tpu_torch.ops import shadow
+
+    if name == "raster_tiles":
+        rows, _, sorted_slot, tile_start, tiles_x, tiles_y, th, tw = args[:8]
+        n = int(tile_start[-1])
+        px = tiles_x * tiles_y * th * tw
+        outputs = 1 if kw.get("depth_only") else 2
+        nbytes = 4 * (n + tile_start.numel() + 12 * _distinct(sorted_slot[:n], rows.shape[0])
+                      + outputs * px)
+        # per (pair, tile pixel): 4 planes x (2 mul + 2 add), 6 compares
+        return nbytes, 22 * n * th * tw
+    if name == "pack_shade_rows":
+        pf, st, p = args
+        return 4 * pf.shape[1] * (48 + 56 + 128), 264 * p
+    if name == "select_interp":
+        rows, ibuf = args
+        cov = ibuf >= 0
+        hw = ibuf.numel()
+        nbytes = 4 * hw + 512 * _distinct(ibuf[cov], rows.shape[0]) + 4 * 64 * hw
+        return nbytes, 137 * int(cov.sum())
+    if name == "tap_resolve":
+        table, idx = args[:2]
+        n = idx.numel()
+        c4 = kw["c4"]
+        return 4 * 7 * n + 256 * _distinct(idx, table.shape[0]) + 4 * 16 * n, 9 * (c4 // 4 + 4) * n
+    if name == "window_lut_q":
+        src, s, y_range = args
+        lo, hi = y_range.tolist()
+        band = max(0, min(hi + 3, s + 3) - max(lo, 0) + 1)
+        return 4 * min(s, band) * s + 2 * (s + 4) * shadow.lut_pitch(s), 5 * band * (s + 4)
+    if name == "pcf_eval":
+        lut, order, rows_used, start_y, start_x = args[:5]
+        n = order.numel()
+        live = order[: min(int(rows_used[0]), n)].long()
+        pix = (live[:, None] * 128 + torch.arange(128, device=live.device)).reshape(-1)
+        base = start_y.reshape(-1)[pix].long() * lut.shape[1] + start_x.reshape(-1)[pix].long()
+        win = torch.tensor([r * lut.shape[1] + c for r in range(4) for c in range(4)],
+                           device=base.device)
+        texels = _distinct(base[:, None] + win, lut.numel())
+        # dequantise 16, 5 x (add, floor, sub), 25 x (3 + 9 lerp + 2)
+        return 4 * (n + 1) + 20 * pix.numel() + 2 * texels + 4 * 128 * n, 381 * pix.numel()
+    raise KeyError(name)
+
+
+def bound(calls):
+    """(bound_ms, bound_by) of one frame's calls of a kernel: per call the
+    larger of bytes / HBM rate and operations / f32 rate, summed."""
+    t_bytes = t_ops = total = 0.0
+    for name, args, kw in calls:
+        nbytes, ops = work(name, args, kw)
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        t_bytes, t_ops, total = t_bytes + tb, t_ops + to, total + max(tb, to)
+    return total, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare_kernels(calls, label: str, names, timed=()):
+    """Each recorded call of the named kernels: kernel vs plain version on
+    the same inputs. Returns {kernel: {"max_abs_err", "ms", "plain_ms",
+    "bound_ms", "bound_by"}} for the ``timed`` kernels (times summed over
+    the kernel's calls in one frame), {"max_abs_err"} for the others."""
     import torch
 
     from arctic_tpu_torch.utils import kernels
@@ -323,6 +553,8 @@ def compare_kernels(calls, label: str, timed: bool):
     result = {}
     for fn in kernels.KERNELS:
         name = fn.kernel_name
+        if name not in names:
+            continue
         if name not in calls:
             raise RuntimeError(f"{label}: kernel {name} was not called")
         err, ms, plain_ms = 0.0, 0.0, 0.0
@@ -335,12 +567,16 @@ def compare_kernels(calls, label: str, timed: bool):
                 if d != 0.0:
                     raise RuntimeError(f"{label}: {name} differs from its plain version (max {d})")
                 err = max(err, d)
-            if timed:
+            if name in timed:
                 ms += cuda_ms(lambda: fn(*args, **kw), 20)
                 plain_ms += cuda_ms(lambda: fn.plain(*args, **kw), 2)
-        result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        result[name] = dict(max_abs_err=err)
+        if name in timed:
+            b_ms, b_by = bound([(name, a, k) for a, k in calls[name]])
+            result[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"{label}: {name} x{len(calls[name])} bit-exact vs plain"
-            + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per frame" if timed else ""))
+            + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+               f"({b_by}) per frame" if name in timed else ""))
     return result
 
 
@@ -371,9 +607,26 @@ def main() -> int:
 
     dev = torch.device("cuda")
     _, entry_calls = run_entry(dev)
-    summary, real_calls, counts = run_real(dev, profile="--profile" in sys.argv[1:])
-    entry_cmp = compare_kernels(entry_calls, "entry", timed=False)
-    real_cmp = compare_kernels(real_calls, "real-size", timed=True)
+    _, qentry_calls = run_entry(dev, pcf_row_cap=ENTRY_ROWS)
+    bufs = real_buffers(dev)
+    profile = "--profile" in sys.argv[1:]
+    summary, real_calls, counts = run_real(dev, bufs, profile)
+    qsummary, qreal_calls, qcounts, uncached, qconfig = run_real_quant(dev, bufs, profile)
+    csummary = run_cached(dev, bufs, qconfig, uncached, profile)
+    log(f"real-size ms/frame medians (one call, one card): default "
+        f"{summary['ms_per_frame_median']:.3f}, quant {qsummary['ms_per_frame_median']:.3f}, "
+        f"cached sun {csummary['ms_per_frame_median']:.3f}")
+    own = ("window_lut_q", "pcf_eval")
+    cmps = [
+        compare_kernels(entry_calls, "entry", DEFAULT_PATH),
+        compare_kernels(qentry_calls, "quant entry", QUANT_PATH),
+        compare_kernels(real_calls, "real-size", DEFAULT_PATH, timed=DEFAULT_PATH),
+        compare_kernels(qreal_calls, "quant real-size", QUANT_PATH, timed=own),
+    ]
+    # Each kernel's numbers come from the path that owns it: K7 / K8 from
+    # the quantised fly-through, the others from the default one.
+    timing = {**cmps[2], **{k: cmps[3][k] for k in own}}
+    launches = {**counts, **{k: qcounts[k] for k in own}}
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "arctic_tpu"))
     if foreign:
@@ -382,11 +635,13 @@ def main() -> int:
     rows = []
     for fn in kernels.KERNELS:
         name = fn.kernel_name
+        t = timing[name]
         rows.append(dict(
             name=name, route=fn.route, source=fn.source, replaces=fn.replaces,
-            launches=counts[name],
-            max_abs_err=max(entry_cmp[name]["max_abs_err"], real_cmp[name]["max_abs_err"]),
-            ms=real_cmp[name]["ms"], plain_ms=real_cmp[name]["plain_ms"],
+            launches=launches[name],
+            max_abs_err=max(c[name]["max_abs_err"] for c in cmps if name in c),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None,
         ))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

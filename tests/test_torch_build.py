@@ -47,7 +47,7 @@ def built(request):
     name = request.param
     scene = getattr(jproc, f"{name}_like_scene")()
     jb = jbuild.build_buffers(*scene, tri_bucket=SCENES[name])
-    tb = build.build_buffers(*scene, tri_bucket=SCENES[name])
+    tb = build.build_buffers(*scene, tri_bucket=SCENES[name], device="cpu")
     return jb, tb
 
 
@@ -131,6 +131,21 @@ def test_convert_render_config():
         assert getattr(tc, name) == getattr(jc, name)
     assert tc.pair_capacity(1000) == jc.pair_capacity(1000) == jc.pair_capacity(1000, "shadow")
     assert (tc.tiles_x, tc.tiles_y) == (jc.tiles_x, jc.tiles_y)
-    for off in (dict(pcf_row_cap=4096), dict(fused_shade=False), dict(sun_frustum_cull=False)):
+    # lut_y_skip changes no pixel (only table rows no window reads): accepted.
+    tc = convert.render_config(JRenderConfig(pcf_row_cap=4096, lut_y_skip=False))
+    assert tc.pcf_row_cap == 4096 and not hasattr(tc, "lut_y_skip")
+    for off in (dict(tex_group_caps=(32, 32)), dict(fused_shade=False), dict(sun_frustum_cull=False)):
         with pytest.raises(ValueError, match=next(iter(off))):
             convert.render_config(JRenderConfig(**off))
+
+
+def test_entry_points_default_to_the_card():
+    """build_buffers and the renderer factories put their work on the card
+    unless the caller asks for the CPU (the CPU tests pass device="cpu")."""
+    import inspect
+
+    from arctic_tpu_torch.models import pipeline
+
+    for fn in (build.build_buffers, pipeline.make_renderer_stats,
+               pipeline.make_cached_renderer_stats, pipeline.make_sun_cache_builder):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__

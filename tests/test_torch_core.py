@@ -6,9 +6,11 @@ Tolerances: jnp.cross / jnp.linalg.norm / jnp.dot run as compiled XLA
 computations that contract into FMAs, and at steep pitch cross(f, up)
 cancels, which scales those roundings up: the view, sun and proj_view
 matrices are held to 16 ulp of each row's largest entry (measured: <= 10).
-Tonemapped values lie in [0, 1] and go through exp/pow of two libms: 4 ulp
-of 1.0 (measured: <= 3.1). Elementwise +-*/ chains and the u8 store are
-exact on identical inputs.
+Tonemap operators and the gamma curve, each on the same inputs, lie in
+[0, 1] and go through exp/pow of two libms: 4 ulp of 1.0 (measured: <= 0.5
+and <= 0.125 of the bound); the whole chain is held at its u8 store, within
+1 LSB. Elementwise +-*/ chains and the u8 store are exact on identical
+inputs.
 """
 
 import os
@@ -109,13 +111,37 @@ def _hdr(seed):
 @pytest.mark.parametrize("gamma", [1.0, 2.2])
 @pytest.mark.parametrize("tm_method", [0, 1, 2])
 def test_tonemap_matches_jax(tm_method, gamma):
+    """Each stage of the chain on its own inputs, then the stored u8.
+
+    The whole chain is not held to an ulp bound: at the planted texel
+    c = 1e-6 torch's exp and XLA's exp may differ by 1 ulp near 1.0, so
+    1 - exp(-1.4e-6) cancels to 1.4305e-6 in one and 1.3709e-6 in the
+    other, and pow(x, 1/2.2) spreads that to 0.0022050 vs 0.0021627 (both
+    store as u8 1). Which exp a host's vector unit takes decides it."""
     c = _hdr(tm_method)
     exposure = np.float32(1.4)
-    got = tonemap.tonemap(torch.from_numpy(c), tm_method, torch.tensor(gamma), torch.tensor(exposure)).numpy()
-    want = np.asarray(
-        jtonemap.tonemap(jnp.asarray(c), jnp.int32(tm_method), jnp.float32(gamma), jnp.float32(exposure), channel_axis=0)
+    tc, jc = torch.from_numpy(c), jnp.asarray(c)
+    ops = [
+        (tonemap.tm_reinhard, jtonemap.tm_reinhard),
+        (lambda x: tonemap.tm_exposure(x, torch.tensor(exposure)),
+         lambda x: jtonemap.tm_exposure(x, jnp.float32(exposure))),
+        (tonemap.tm_aces, lambda x: jtonemap.tm_aces(x, channel_axis=0)),
+    ]
+    op, jop = ops[tm_method]
+    mapped = np.asarray(jop(jc))
+    assert_ulp(op(tc).numpy(), mapped, 4, scale=1.0)
+    assert_ulp(
+        tonemap.correct_gamma(torch.from_numpy(mapped.copy()), torch.tensor(gamma)).numpy(),
+        np.asarray(jtonemap.correct_gamma(jnp.asarray(mapped), jnp.float32(gamma))),
+        4, scale=1.0,
     )
-    assert_ulp(got, want, 4, scale=1.0)
+    got = tonemap.to_unorm8(
+        tonemap.tonemap(tc, tm_method, torch.tensor(gamma), torch.tensor(exposure))
+    ).numpy()
+    want = np.asarray(jtonemap.to_unorm8(jtonemap.tonemap(
+        jc, jnp.int32(tm_method), jnp.float32(gamma), jnp.float32(exposure), channel_axis=0
+    )))
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
 
 
 def test_to_unorm8_matches_jax():

@@ -1,5 +1,6 @@
-"""arctic_tpu_torch on the card: the four CUDA kernels against their plain
-torch versions, and the entry frame against the CPU frame.
+"""arctic_tpu_torch on the card: the six CUDA kernels against their plain
+torch versions, and the entry frame, on the default path and on the
+quantised PCF path (pcf_row_cap), against the CPU frame.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on a machine with the card and no JAX:
@@ -21,12 +22,15 @@ from arctic_tpu_torch.core.scene import default_scene_params, default_settings, 
 from arctic_tpu_torch.io.build import build_buffers
 from arctic_tpu_torch.io.procedural import cornell_like_scene
 from arctic_tpu_torch.models import pipeline
-from arctic_tpu_torch.ops import raster_tiles, sampling
+from arctic_tpu_torch.ops import raster_tiles, sampling, shadow
 from arctic_tpu_torch.utils import kernels
 
 pytestmark = pytest.mark.cuda
 
 W, H, SHADOW = 256, 192, 256
+DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve")
+QUANT_PATH = DEFAULT_PATH + ("window_lut_q", "pcf_eval")
+ROWS = (W // 64) * (H // 64) * 32  # every 128-pixel row of the frame
 
 
 @pytest.fixture(scope="module")
@@ -36,8 +40,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _entry(device):
-    config = RenderConfig(width=W, height=H, shadow_size=SHADOW)
+def _entry(device, pcf_row_cap=None):
+    config = RenderConfig(width=W, height=H, shadow_size=SHADOW, pcf_row_cap=pcf_row_cap)
     bufs = build_buffers(*cornell_like_scene(), tri_bucket=256, device=device)
     params = default_scene_params(aspect=W / H)
     params.camera = make_camera([0.0, 4.0, 3.0], [-25.0, -90.0], W / H)
@@ -45,39 +49,57 @@ def _entry(device):
 
 
 def _same(a, b):
+    if a.dtype == torch.uint16:
+        a, b = a.to(torch.int32), b.to(torch.int32)
     nan_a, nan_b = torch.isnan(a), torch.isnan(b)
     return torch.equal(nan_a, nan_b) and torch.equal(a[~nan_a], b[~nan_b])
 
 
-@pytest.fixture(scope="module")
-def entry_run(cuda):
-    config, bufs, params, settings = _entry(cuda)
+def _run(device, pcf_row_cap=None):
+    config, bufs, params, settings = _entry(device, pcf_row_cap)
     kernels.reset_launch_counts()
     with kernels.record_calls() as calls:
         img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    cpu_img, cpu_stats = pipeline.render_frame_stats(*_entry("cpu")[1:], config)
+    cpu_img, cpu_stats = pipeline.render_frame_stats(*_entry("cpu", pcf_row_cap)[1:], config)
     return dict(img=img, stats=stats, counts=counts, calls=calls, cpu=(cpu_img, cpu_stats))
 
 
-def test_every_kernel_launches(entry_run):
-    assert min(entry_run["counts"].values()) >= 1, entry_run["counts"]
+@pytest.fixture(scope="module")
+def entry_run(cuda):
+    return _run(cuda)
 
 
-def test_entry_frame_matches_cpu(entry_run):
-    cpu_img, cpu_stats = entry_run["cpu"]
-    d = (entry_run["img"].cpu().to(torch.int32) - cpu_img.to(torch.int32)).abs()
+@pytest.fixture(scope="module")
+def quant_run(cuda):
+    return _run(cuda, pcf_row_cap=ROWS)
+
+
+def test_every_kernel_launches(entry_run, quant_run):
+    """Each path launches each of its kernels; the default path none of the
+    quantised path's own."""
+    for run, path in ((entry_run, DEFAULT_PATH), (quant_run, QUANT_PATH)):
+        assert min(run["counts"][k] for k in path) >= 1, run["counts"]
+    assert entry_run["counts"]["window_lut_q"] == entry_run["counts"]["pcf_eval"] == 0
+
+
+@pytest.mark.parametrize("path", ["default", "quant"])
+def test_entry_frame_matches_cpu(entry_run, quant_run, path):
+    run = entry_run if path == "default" else quant_run
+    cpu_img, cpu_stats = run["cpu"]
+    d = (run["img"].cpu().to(torch.int32) - cpu_img.to(torch.int32)).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
-    assert {k: int(v) for k, v in entry_run["stats"].items()} == {
+    assert {k: int(v) for k, v in run["stats"].items()} == {
         k: int(v) for k, v in cpu_stats.items()
     }
 
 
-@pytest.mark.parametrize("name", ["raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve"])
-def test_kernel_equals_plain_on_frame_inputs(entry_run, name):
+@pytest.mark.parametrize("name", QUANT_PATH)
+def test_kernel_equals_plain_on_frame_inputs(entry_run, quant_run, name):
+    run = entry_run if name in DEFAULT_PATH else quant_run
     fn = next(k for k in kernels.KERNELS if k.kernel_name == name)
-    for args, kw in entry_run["calls"][name]:
+    for args, kw in run["calls"][name]:
         got, want = fn(*args, **kw), fn.plain(*args, **kw)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -98,3 +120,11 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
     table = torch.zeros((4, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         sampling.tap_resolve(table, idx, idx, idx, f, f, f, f, c4=32)
+    band = torch.tensor([0, 64], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        shadow.window_lut_q(rows, 64, band)
+    lut = shadow.window_lut_q(rows.float(), 64, band)
+    planes = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        shadow.pcf_eval(lut, planes[0, :1], planes[0, :1], planes, planes, planes, planes,
+                        planes, shadow.tap_offsets(64))
