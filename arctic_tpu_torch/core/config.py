@@ -6,7 +6,8 @@ sun-frustum shadow cull and the f16 HDR round are always on, so they are
 not options here. The PCF takes the exact f32 runs path unless
 ``pcf_row_cap`` asks for the u16-quantised window table with penumbra
 classification. Pair buffers and the penumbra row buffer keep fixed
-capacities, so an overflow stays loud through check_stats.
+capacities (the pair caps from a formula, or tuned to a camera path), so an
+overflow stays loud through check_stats.
 """
 
 from __future__ import annotations
@@ -36,6 +37,12 @@ class RenderConfig:
     pairs_per_tri: int = 2
     pair_reserve: int = 65536
 
+    # Per-pass pair capacities that replace the formula (None = formula):
+    # binning's cost scales with the capacity, not with the pairs, and
+    # pipeline.autotune_pair_caps sizes them to a scene and a camera path.
+    pair_cap_cam: int | None = None
+    pair_cap_shadow: int | None = None
+
     # Point lights shaded per frame (None = the params' light count).
     static_point_lights: int | None = None
 
@@ -58,5 +65,10 @@ class RenderConfig:
     def num_tiles(self) -> int:
         return self.tiles_x * self.tiles_y
 
-    def pair_capacity(self, clip_slots: int) -> int:
+    def pair_capacity(self, clip_slots: int, kind: str = "cam") -> int:
+        """Pair buffer entries of the camera (``kind="cam"``) or the shadow
+        (``"shadow"``) pass."""
+        override = self.pair_cap_cam if kind == "cam" else self.pair_cap_shadow
+        if override is not None:
+            return _round_up(override, 1024)
         return _round_up(self.pairs_per_tri * clip_slots + self.pair_reserve, 1024)

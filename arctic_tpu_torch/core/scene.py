@@ -122,15 +122,28 @@ class Geometry:
 
 @dataclass
 class TextureAtlas:
-    """The combined-slot material atlas of the merged texture+environment
-    tap (see arctic_tpu.core.scene.TextureAtlas)."""
+    """The material textures, on one of two routes (see
+    arctic_tpu.core.scene.TextureAtlas):
 
-    combined_slots: tuple  # texture slots interleaved per quad, e.g. (0, 1)
-    combined_shape: tuple  # (AH, AW) of the combined atlas
-    quad_width: int  # C4: channels per combined quad (16 per slot)
+    - the combined-slot quad atlas of the merged texture+environment tap
+      (K6): the ``combined_*`` fields and ``quad_width``; ``tiles`` is None;
+    - the u16 tile atlas of reference-scale texture sets (K9): ``tiles``,
+      ``tiles_ntex`` and ``tile_groups``; the ``combined_*`` fields are None.
+    """
+
+    combined_slots: tuple | None = None  # texture slots interleaved per quad, e.g. (0, 1)
+    combined_shape: tuple | None = None  # (AH, AW) of the combined atlas
+    quad_width: int | None = None  # C4: channels per combined quad (16 per slot)
     # [packed material quad rows; environment quad rows] — the one table the
     # merged tap gathers from.
-    combined_env_rows: torch.Tensor  # (ntex + n_env, 128) bf16
+    combined_env_rows: torch.Tensor | None = None  # (ntex + n_env, 128) bf16
+    # [g0 tiles | env | g1 tiles | env | ...]: 4x8-texel u16 tiles (lane
+    # c2*32 + y*8 + x holds channels 2*c2 | 2*c2+1 << 16) of each material
+    # group, each group followed by its own copy of the environment's quad
+    # rows as f32 bits (io/build.py group_tile_atlas).
+    tiles: torch.Tensor | None = None  # (N, 128) i32
+    tiles_ntex: int | None = None  # first env row of group 0 (any copy serves)
+    tile_groups: tuple | None = None  # per group (mstart, env_base, end) rows
 
     @property
     def combined_block_grid(self):
@@ -141,11 +154,11 @@ class TextureAtlas:
 @dataclass
 class Environment:
     """Equirect environment: its quad table rows sit at the tail of
-    TextureAtlas.combined_env_rows."""
+    TextureAtlas.combined_env_rows, or after each group of TextureAtlas.tiles."""
 
     region: tuple  # (y, x, h, w) of the single padded region
     data_shape: tuple  # (EH, EW) of the padded environment atlas
-    num_rows: int  # quad rows of the environment in combined_env_rows
+    num_rows: int  # quad rows of one copy of the environment
 
     @property
     def block_grid(self):

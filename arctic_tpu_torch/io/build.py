@@ -1,7 +1,9 @@
 """Host-side scene assembly: meshes + materials + env -> SceneBuffers of
-tensors on a device. Port of arctic_tpu/io/build.py on its default route
-(quad atlases with the combined-slot material atlas; no tile atlas, no
-texture groups).
+tensors on a device. Port of arctic_tpu/io/build.py on its two texture
+routes: the combined-slot quad atlas of small texture sets and, above
+TILE_ATLAS_THRESHOLD_TEXELS, the u16 tile atlas with its default greedy
+material groups (the explicit groups of the grouped tile route are not
+ported).
 
 The numpy body is the JAX package's, unchanged, so both builds produce the
 same arrays; only the last step differs (``torch.as_tensor(..., device=)``
@@ -23,6 +25,7 @@ from arctic_tpu_torch.core.scene import (
     SceneBuffers,
     TextureAtlas,
 )
+from arctic_tpu_torch.ops.sampling import TILE_H, TILE_SX, TILE_SY, TILE_W
 from arctic_tpu_torch.utils.errors import RenderError
 
 
@@ -154,9 +157,101 @@ def _round_up(x: int, m: int) -> int:
     return max((x + m - 1) // m * m, m)
 
 
-# Above this many combined texels the JAX package switches to its u16 tile
-# atlas, which this port does not have yet.
+# Above this many material texels the bf16 quad tables (~96 B/texel with
+# their four parity copies) give way to the u16 tile atlas (~24 B/texel).
 TILE_ATLAS_THRESHOLD_TEXELS = 1_000_000
+
+
+def build_tile_atlas(images: Sequence[np.ndarray]):
+    """Per-material 8-channel images -> (tiles (N, 128) i32, meta (M, 4) i32).
+
+    images: one (h, w, 8) f32 array per material, channels [diffuse RGB
+    linear, normal XYZ, mr G, mr B]. Each image gets a 1-texel wrapped
+    border, is quantised to u16 (round to nearest), and is cut into 4x8-texel
+    tiles on a (3, 7) grid so any bilinear 2x2 window lives in ONE tile.
+    Tile row lanes: ch2 * 32 + y * 8 + x holds channels 2*ch2 | 2*ch2+1<<16.
+    meta rows are (row base, tiles per row, h, w).
+    """
+    metas = np.zeros((len(images), 4), np.int32)
+    parts = []
+    base = 0
+    for mi, img in enumerate(images):
+        h, w = img.shape[:2]
+        q = np.floor(np.clip(img.astype(np.float32) * 65535.0 + 0.5, 0, 65535))
+        q = q.astype(np.uint32)
+        p = np.pad(q, ((1, 1), (1, 1), (0, 0)), mode="wrap")
+        nty, ntx = h // TILE_SY + 1, w // TILE_SX + 1
+        hp = TILE_SY * (nty - 1) + TILE_H
+        wp = TILE_SX * (ntx - 1) + TILE_W
+        p = np.pad(p, ((0, hp - p.shape[0]), (0, wp - p.shape[1]), (0, 0)))
+        sv = np.lib.stride_tricks.as_strided(
+            p,
+            shape=(nty, ntx, TILE_H, TILE_W, 8),
+            strides=(
+                p.strides[0] * TILE_SY, p.strides[1] * TILE_SX,
+                p.strides[0], p.strides[1], p.strides[2],
+            ),
+        )
+        t = np.ascontiguousarray(sv).reshape(nty * ntx, TILE_H, TILE_W, 8)
+        packed = t[..., 0::2] | (t[..., 1::2] << 16)  # (N, 4, 8, 4) u32
+        rows = packed.transpose(0, 3, 1, 2).reshape(-1, 128)
+        parts.append(rows.view(np.int32))
+        metas[mi] = (base, ntx, h, w)
+        base += nty * ntx
+    return np.concatenate(parts), metas
+
+
+# Row budget of one material group's [tiles + env copy] slice (the JAX
+# package sized it to a TPU gather-cost tier; the grouping, and so the
+# table, is kept as the JAX package lays it out).
+TEX_GROUP_BUDGET_BYTES = 104 * 1024 * 1024
+
+
+def group_tile_atlas(tiles_np, metas, env_rows, budget_bytes: int = TEX_GROUP_BUDGET_BYTES):
+    """Partition the tile atlas into material groups, each followed by its
+    own env copy, packed greedily in material order under ``budget_bytes``.
+
+    Returns (table (N', 128) i32, metas', groups): the layout [g0 tiles |
+    env | g1 tiles | env | ...], the metas with their bases rebased into
+    it, and per group (mstart, env_base, end). A material that alone
+    exceeds the budget still gets a group."""
+    m = len(metas)
+    total = tiles_np.shape[0]
+    counts = [
+        (int(metas[i + 1][0]) if i + 1 < m else total) - int(metas[i][0])
+        for i in range(m)
+    ]
+    e = int(env_rows.shape[0])
+    budget_rows = budget_bytes // (tiles_np.shape[1] * 4)
+    groups_mats = []
+    cur: list[int] = []
+    cur_rows = 0
+    for i in range(m):
+        if cur and cur_rows + counts[i] + e > budget_rows:
+            groups_mats.append(cur)
+            cur, cur_rows = [], 0
+        cur.append(i)
+        cur_rows += counts[i]
+    if cur:
+        groups_mats.append(cur)
+
+    parts = []
+    groups = []
+    new_metas = metas.copy()
+    base = 0
+    for mats in groups_mats:
+        mstart = base
+        for i in mats:
+            orig = int(metas[i][0])
+            parts.append(tiles_np[orig : orig + counts[i]])
+            new_metas[i][0] = base
+            base += counts[i]
+        parts.append(env_rows)
+        env_base = base
+        base = env_base + e
+        groups.append((mstart, env_base, base))
+    assert base < (1 << 24), "tile row bases must stay f32-exact"
+    return np.concatenate(parts), new_metas, tuple(groups)
 
 
 def _pack_rows_128(rows: np.ndarray) -> np.ndarray:
@@ -193,9 +288,14 @@ def build_buffers(
     environment: np.ndarray,  # (H, W, 3) f32 linear radiance
     tri_bucket: int = 1024,
     device: torch.device | str = "cuda",
+    tile_threshold_texels: int | None = None,
+    tex_group_budget: int | None = None,
 ) -> SceneBuffers:
     """Flatten a scene into tensors on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU). Material sets of more than
+    ``tile_threshold_texels`` (default TILE_ATLAS_THRESHOLD_TEXELS) texels
+    take the tile atlas, grouped under ``tex_group_budget`` bytes (default
+    TEX_GROUP_BUDGET_BYTES); smaller ones the combined quad atlas."""
     pos_l, nrm_l, tan_l, btn_l, uv_l, vobj_l = [], [], [], [], [], []
     idx_l, mat_l = [], []
     vbase = 0
@@ -287,44 +387,60 @@ def build_buffers(
             break
         per_mat_hw.append(dims.pop() if dims else (1, 1))
     total_texels = sum(h * w for h, w in per_mat_hw) if tile_ok else 0
-    if tile_ok and total_texels > TILE_ATLAS_THRESHOLD_TEXELS:
-        raise RenderError(
-            f"{total_texels} material texels take the JAX package's u16 tile "
-            f"atlas route, which this port does not have yet"
-        )
-    atlas_np, locs = pack_atlas(images)
-    regions = locs.reshape(len(materials), 3, 4)
+    threshold = (
+        TILE_ATLAS_THRESHOLD_TEXELS if tile_threshold_texels is None else tile_threshold_texels
+    )
+    use_tiles = tile_ok and total_texels > threshold
 
-    # Combined-slot atlas: interleave each material's non-elided textures
-    # into one multi-channel image so a pixel's material taps are ONE row.
-    slots = [0] + ([] if nm_constant else [1]) + ([] if mr_constant else [2])
-    combined = None
-    if len(slots) > 1:
-        combined_imgs = []
-        total_texels = 0
-        for mi in range(len(materials)):
-            group = [images[3 * mi + s] for s in slots]
-            konst = [(im == im.reshape(-1, im.shape[-1])[0]).all() for im in group]
-            dims = {im.shape[:2] for im, k in zip(group, konst) if not k}
-            if len(dims) > 1:
-                combined = False  # incompatible sizes: keep separate taps
-                break
-            hw = dims.pop() if dims else max(im.shape[:2] for im in group)
+    if use_tiles:
+        images8 = []
+        for mi, (h, w) in enumerate(per_mat_hw):
             group = [
-                im if im.shape[:2] == hw else np.broadcast_to(im[0:1, 0:1], hw + (4,))
-                for im in group
+                im if im.shape[:2] == (h, w) else np.broadcast_to(im[0:1, 0:1], (h, w, 4))
+                for im in images[3 * mi : 3 * mi + 3]
             ]
-            combined_imgs.append(np.concatenate(group, axis=-1))
-            total_texels += hw[0] * hw[1]
-        if combined is None and total_texels <= 32 * 1024 * 1024:
-            combined = True
-    if not combined:
-        raise RenderError(
-            "the scene's materials do not combine into one quad atlas; the "
-            "per-slot texture taps are not ported yet"
-        )
-    c_np, c_locs = pack_atlas(combined_imgs)
-    combined_quads = pack_atlas_quads(c_np)
+            images8.append(np.concatenate(
+                [group[0][..., :3], group[1][..., :3], group[2][..., 1:3]], axis=-1
+            ))
+        tiles_np, tile_meta = build_tile_atlas(images8)
+        regions = np.zeros((len(materials), 3, 4), np.int32)  # no per-slot atlas
+    else:
+        _, locs = pack_atlas(images)
+        regions = locs.reshape(len(materials), 3, 4)
+
+        # Combined-slot atlas: interleave each material's non-elided
+        # textures into one multi-channel image so a pixel's material taps
+        # are ONE row.
+        slots = [0] + ([] if nm_constant else [1]) + ([] if mr_constant else [2])
+        combined = None
+        if len(slots) > 1:
+            combined_imgs = []
+            total_texels = 0
+            for mi in range(len(materials)):
+                group = [images[3 * mi + s] for s in slots]
+                konst = [(im == im.reshape(-1, im.shape[-1])[0]).all() for im in group]
+                dims = {im.shape[:2] for im, k in zip(group, konst) if not k}
+                if len(dims) > 1:
+                    combined = False  # incompatible sizes: keep separate taps
+                    break
+                hw = dims.pop() if dims else max(im.shape[:2] for im in group)
+                group = [
+                    im if im.shape[:2] == hw else np.broadcast_to(im[0:1, 0:1], hw + (4,))
+                    for im in group
+                ]
+                combined_imgs.append(np.concatenate(group, axis=-1))
+                total_texels += hw[0] * hw[1]
+            if combined is None and total_texels <= 32 * 1024 * 1024:
+                combined = True
+        if not combined:
+            raise RenderError(
+                "the scene's materials take neither the combined quad atlas nor "
+                f"the tile atlas (sets of more than {threshold} texels whose maps "
+                "share each material's size); the per-slot texture taps are not "
+                "ported yet"
+            )
+        c_np, c_locs = pack_atlas(combined_imgs)
+        combined_quads = pack_atlas_quads(c_np)
 
     env_np = np.asarray(environment, np.float32)
     env_rgba = np.concatenate(
@@ -332,12 +448,21 @@ def build_buffers(
     )
     env_data, env_locs = pack_atlas([env_rgba])
     env_rows = _pack_rows_128(pack_atlas_quads(env_data))
+    if use_tiles:
+        # Each material group carries its own env copy, as f32 bits.
+        tiles_np, tile_meta, tile_groups = group_tile_atlas(
+            tiles_np, tile_meta, env_rows.view(np.int32),
+            TEX_GROUP_BUDGET_BYTES if tex_group_budget is None else tex_group_budget,
+        )
+        c_reg = tile_meta  # lanes 43:47 carry the tile block (base, ntx, h, w)
+    else:
+        c_reg = c_locs
 
     # Per-triangle material row: [atlas regions (3 slots x (y,x,h,w)) |
-    # mr_consts | nm_consts[:3] | combined-atlas region].
+    # mr_consts | nm_consts[:3] | combined-atlas region or tile block].
     matrow_by_mat = np.concatenate(
         [regions.reshape(len(materials), 12).astype(np.float32),
-         mr_consts, nm_consts[:, :3], c_locs.astype(np.float32)], axis=1,
+         mr_consts, nm_consts[:, :3], c_reg.astype(np.float32)], axis=1,
     )  # (M, 23)
     # Static half of the shade-row table, in clip-slot order [tri; tri].
     matrow_tri = matrow_by_mat[tri_mat].T  # (23, cap)
@@ -357,14 +482,21 @@ def build_buffers(
         tri_trs=f32(tri_trs),
         slot_static_rows=f32(slot_static),
     )
-    atlas = TextureAtlas(
-        combined_slots=tuple(slots),
-        combined_shape=c_np.shape[:2],
-        quad_width=combined_quads.shape[1],
-        combined_env_rows=torch.cat(
-            [_bf16(pack_tex_rows(combined_quads), device), _bf16(env_rows, device)]
-        ),
-    )
+    if use_tiles:
+        atlas = TextureAtlas(
+            tiles=torch.as_tensor(tiles_np, device=device),
+            tiles_ntex=int(tile_groups[0][1]),
+            tile_groups=tile_groups,
+        )
+    else:
+        atlas = TextureAtlas(
+            combined_slots=tuple(slots),
+            combined_shape=c_np.shape[:2],
+            quad_width=combined_quads.shape[1],
+            combined_env_rows=torch.cat(
+                [_bf16(pack_tex_rows(combined_quads), device), _bf16(env_rows, device)]
+            ),
+        )
     environment_ = Environment(
         region=tuple(int(v) for v in env_locs[0]),
         data_shape=env_data.shape[:2],

@@ -1,9 +1,10 @@
 """Procedural meshes, textures, environments and test/benchmark scenes —
 the generators of arctic_tpu/io/procedural.py, bound to this package's
 MeshData/MaterialImages (the JAX package's module imports its JAX-backed
-scene build). The arrays are identical to the JAX package's; the
-reference-scale texture variant of the Sponza-class scene (the tile-atlas
-route) is not ported yet.
+scene build). The arrays are identical to the JAX package's, the
+reference-scale textures included: their noise octaves are upsampled by
+``resize_bilinear_u8``, a numpy copy of Pillow's 8-bit bilinear resample,
+so the package needs no Pillow.
 """
 
 from __future__ import annotations
@@ -153,6 +154,56 @@ def mr_texture(metalness: float, roughness: float, size=4) -> np.ndarray:
     return img
 
 
+def _resample_table(n_in: int, n_out: int):
+    """(index (n_out, k), fixed-point weight (n_out, k)) of Pillow's bilinear
+    resample along one axis (Resample.c precompute_coeffs and
+    normalize_coeffs_8bpc): support max(scale, 1) around each output centre,
+    tent weights normalised in double, then rounded to 22 fractional bits."""
+    scale = n_in / n_out
+    fs = max(scale, 1.0)
+    support = fs
+    ss = 1.0 / fs
+    k = int(np.ceil(support)) * 2 + 1
+    index = np.zeros((n_out, k), np.int64)
+    weight = np.zeros((n_out, k), np.int64)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in) - xmin
+        w = [max(0.0, 1.0 - abs((j + xmin - center + 0.5) * ss)) for j in range(xmax)]
+        total = sum(w)
+        for j, wj in enumerate(w):
+            wj = wj / total if total != 0.0 else wj
+            index[xx, j] = xmin + j
+            weight[xx, j] = int(-0.5 + wj * (1 << 22)) if wj < 0 else int(0.5 + wj * (1 << 22))
+    return index, weight
+
+
+def _resample_axis(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    """One pass of the resample along ``axis`` (0 rows, 1 columns) of a
+    2-D u8 image."""
+    index, weight = _resample_table(img.shape[axis], n_out)
+    src = img.astype(np.int64)
+    if axis == 1:
+        acc = (src[:, index] * weight[None]).sum(axis=-1)  # (H, n_out)
+    else:
+        acc = (src[index] * weight[:, :, None]).sum(axis=1)  # (n_out, W)
+    return np.clip((acc + (1 << 21)) >> 22, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear_u8(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W) u8 -> (height, width) u8, equal to Pillow's
+    ``Image.fromarray(img).resize((width, height), Image.BILINEAR)``: the
+    horizontal pass first, then the vertical pass on its u8 result, each
+    output ``clip((2**21 + sum(in * k)) >> 22, 0, 255)``."""
+    out = img
+    if width != img.shape[1]:
+        out = _resample_axis(out, width, axis=1)
+    if height != img.shape[0]:
+        out = _resample_axis(out, height, axis=0)
+    return out
+
+
 def gradient_environment(height=128, width=256, sun_dir=None) -> np.ndarray:
     """Simple HDR sky: horizon gradient + bright sun disk + dark ground."""
     v = (np.arange(height) + 0.5) / height
@@ -231,13 +282,71 @@ def helmet_like_scene():
     return meshes, objects, materials, env
 
 
-def sponza_like_scene(columns=14, rng_seed=7):
+def noisy_texture(size, rng, base=(160, 150, 130), amp=60, freqs=(4, 16, 64)) -> np.ndarray:
+    """Multi-octave value-noise RGBA — content for reference-scale textures
+    (every texel distinct, so no constant-slot elision kicks in)."""
+    acc = np.zeros((size, size), np.float32)
+    for f in freqs:
+        g = rng.uniform(-1.0, 1.0, (f, f)).astype(np.float32)
+        im = resize_bilinear_u8(((g + 1) * 127.5).astype(np.uint8), size, size)
+        acc += (im.astype(np.float32) / 127.5 - 1.0) / len(freqs)
+    img = np.zeros((size, size, 4), np.uint8)
+    for c in range(3):
+        img[..., c] = np.clip(base[c] + amp * acc * (0.7 + 0.15 * c), 0, 255)
+    img[..., 3] = 255
+    return img
+
+
+def noisy_mr_texture(size, rng, metal=0.0, rough=0.6, amp=0.25) -> np.ndarray:
+    """Spatially-varying metal-roughness map (G=rough, B=metal)."""
+    r = noisy_texture(size, rng, base=(0, int(rough * 255), int(metal * 255)), amp=int(amp * 255))
+    out = np.zeros_like(r)
+    out[..., 1] = r[..., 1]
+    out[..., 2] = r[..., 2]
+    out[..., 3] = 255
+    return out
+
+
+def textured_materials(n_materials: int, texture_size: int, rng_seed=11):
+    """n reference-scale materials: diffuse/normal/MR at texture_size^2 each
+    (three full textures per material, as renderer.cpp:475-553 uploads).
+    All three slots vary spatially, so no constant elision shrinks the
+    working set."""
+    rng = np.random.default_rng(rng_seed)
+    mats = []
+    palette = [
+        (188, 165, 130), (170, 150, 140), (190, 180, 160), (160, 60, 50),
+        (90, 110, 150), (120, 140, 90), (200, 190, 120), (110, 90, 80),
+    ]
+    for i in range(n_materials):
+        base = palette[i % len(palette)]
+        mats.append(
+            MaterialImages(
+                diffuse=noisy_texture(texture_size, rng, base=base),
+                normal=bumpy_normal_texture(
+                    texture_size, freq=4 + (i % 5) * 7, strength=0.25 + 0.05 * (i % 4)
+                ),
+                metal_roughness=noisy_mr_texture(
+                    texture_size, rng,
+                    metal=(i % 4) * 0.3, rough=0.3 + (i % 5) * 0.15,
+                ),
+            )
+        )
+    return mats
+
+
+def sponza_like_scene(columns=14, rng_seed=7, texture_size=None, n_materials=24):
     """Benchmark scene with Sponza-scale structure (~0.26M triangles).
 
     A two-story colonnade hall: floor, walls, ceiling strips, two rows of
     fluted columns, hanging drapes (boxes), scattered clutter spheres. The
     point is matching the *load*: triangle count, many materials, large and
     small screen-space triangles, heavy occlusion.
+
+    ``texture_size`` (e.g. 1024) swaps in ``n_materials`` reference-scale
+    materials (three texture_size^2 maps each, the Khronos Sponza's texture
+    load), assigned round-robin across object instances; the geometry is
+    unchanged, so the textured frame differs by its textures alone.
     """
     rng = np.random.default_rng(rng_seed)
     materials = [
@@ -289,4 +398,23 @@ def sponza_like_scene(columns=14, rng_seed=7):
         r = rng.uniform(0.3, 0.9)
         objects.append((transform((x, r, z), scale=(r, r, r)), 3))
     env = gradient_environment(256, 512)
+
+    if texture_size:
+        # Mesh material ids are per mesh, so clone (mesh, material) variants
+        # as the objects need them.
+        materials = textured_materials(n_materials, texture_size)
+        variants = {}
+        new_meshes, new_objects = [], []
+        for k, (trs, mesh_idx) in enumerate(objects):
+            key = (mesh_idx, k % n_materials)
+            if key not in variants:
+                m = meshes[mesh_idx]
+                variants[key] = len(new_meshes)
+                new_meshes.append(MeshData(
+                    positions=m.positions, normals=m.normals, uvs=m.uvs,
+                    indices=m.indices, material=key[1],
+                    tangents=m.tangents, bitangents=m.bitangents,
+                ))
+            new_objects.append((trs, variants[key]))
+        meshes, objects = new_meshes, new_objects
     return meshes, objects, materials, env

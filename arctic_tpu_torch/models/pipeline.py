@@ -1,10 +1,12 @@
 """The fused frame — torch port of arctic_tpu/models/pipeline.py
-(render_frame_stats, build_sun_cache; core/config.py).
+(render_frame_stats, build_sun_cache, autotune_pair_caps; core/config.py).
 
 shadow pass (sun-cull rect, binning, K1 depth-only raster) -> shade-row
 table (K3) -> camera binning + K1 raster -> G-buffer resolve (K4) -> PCF
-sun shadow -> merged texture + sky tap (K6) -> Cook-Torrance PBR with point
-lights and ambient -> skybox composite -> f16 HDR round, tonemap, gamma, u8.
+sun shadow -> texture + sky tap (K6 on the merged quad table, or K9 on the
+u16 tile atlas of reference-scale texture sets) -> Cook-Torrance PBR with
+point lights and ambient -> skybox composite -> f16 HDR round, tonemap,
+gamma, u8.
 
 The PCF takes the exact f32 runs path by default. With
 ``RenderConfig.pcf_row_cap`` it takes the quantised path: K7 builds the u16
@@ -18,13 +20,15 @@ The frame runs eagerly on the device of the scene buffers. Per-frame
 constants (the camera and sun matrices, the light count, post-process
 settings) are evaluated on the host from the params' host tensors, as the
 reference's CPU side does, and enter device math as f32 values. Pair
-buffers have fixed capacities (RenderConfig.pair_capacity) so overflow
-stays loud through check_stats. Intermediates are row-major (C, H_pad,
-W_pad) planes; the values are the JAX package's.
+buffers have fixed capacities (RenderConfig.pair_capacity, from its formula
+or from autotune_pair_caps) so overflow stays loud through check_stats.
+Intermediates are row-major (C, H_pad, W_pad) planes; the values are the
+JAX package's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -38,9 +42,9 @@ from arctic_tpu_torch.core.scene import (
     Settings,
     SunCache,
 )
-from arctic_tpu_torch.ops import cull, raster, raster_tiles, shadow, sky, tonemap
+from arctic_tpu_torch.ops import binning, cull, raster, raster_tiles, shadow, sky, tonemap
 from arctic_tpu_torch.ops.pbr import dot_cf, outgoing_radiance_cf
-from arctic_tpu_torch.ops.sampling import quad_index, tap_resolve
+from arctic_tpu_torch.ops.sampling import quad_index, tap_resolve, tile_index, tile_tap_resolve
 from arctic_tpu_torch.utils.errors import RenderError
 
 
@@ -116,7 +120,7 @@ def shadow_pass(geom: Geometry, sun_clip, config: RenderConfig, cull_rect=None):
         setup, s, s, config, tile_h=SHADOW_TILE, tile_w=SHADOW_TILE,
         depth_only=True, rect=cull_rect,
     )
-    return zbuf, pairs, config.pair_capacity(setup.capacity)
+    return zbuf, pairs, config.pair_capacity(setup.capacity, "shadow")
 
 
 def shade_row_planes(setup: raster.TriSetup, geom: Geometry, wc, lsp) -> torch.Tensor:
@@ -192,9 +196,9 @@ def shade_gbuffer(
     """forward.hlsl ps_main over the (64, H_pad, W_pad) G-buffer, channel
     first (lane map: [0:3 wp, 3:6 n, 6:9 t, 9:12 b, 12:14 uv, 14:17 light
     space xyz, 24:36 atlas regions, 36:40 mr const, 40:43 nm const, 43:47
-    combined-atlas region]). ``sun_lut`` / ``sun_pyr``: a SunCache's
-    products; ``lut_y_range``: the in-frame table's start_y band. Returns
-    (HDR (3, H_pad, W_pad), penumbra rows)."""
+    combined-atlas region or tile block (base, ntx, h, w)]). ``sun_lut`` /
+    ``sun_pyr``: a SunCache's products; ``lut_y_range``: the in-frame
+    table's start_y band. Returns (HDR (3, H_pad, W_pad), penumbra rows)."""
     atlas, env = buffers.atlas, buffers.environment
     dev = gbuf.device
     hp, wp_ = covered.shape
@@ -219,31 +223,45 @@ def shade_gbuffer(
         )
 
     # ONE tap serves texture AND sky: a covered pixel reads its material
-    # quad, an uncovered one its environment quad, from one merged table.
+    # texels, an uncovered one its environment quad, from one table.
     u_sky, v_sky = sky.env_uv_cf(dx, dy, dz)
-    tq, tfx, tfy = quad_index(
-        atlas.combined_block_grid, reg_lane(43, 0.0), reg_lane(44, 0.0),
-        reg_lane(45, 1.0), reg_lane(46, 1.0), u_uv, v_uv,
-    )
     eq, efx, efy = quad_index(env.block_grid, *env.region, u_sky, v_sky)
-    c4 = atlas.quad_width
-    per = 128 // c4
-    merged = atlas.combined_env_rows
-    ntex = merged.shape[0] - env.num_rows
-    idx = torch.where(covered, tq // per, ntex + eq // 8)
-    tap_args = [a.reshape(-1) for a in (idx, tq % per, eq % 8, tfx, tfy, efx, efy)]
-    out16 = tap_resolve(merged, *tap_args, c4=c4).reshape(16, hp, wp_)
-    nch = c4 // 4
-    background = out16[nch : nch + 3]
-    slot_base = {s: 4 * i for i, s in enumerate(atlas.combined_slots)}
-    base_color = out16[slot_base[0] : slot_base[0] + 3]
-    nm = out16[slot_base[1] : slot_base[1] + 3] if 1 in slot_base else gbuf[40:43]
-    if 2 in slot_base:
-        metalness = out16[slot_base[2] + 2][None]
-        roughness = out16[slot_base[2] + 1][None]
+    if atlas.tiles is not None:
+        # Reference-scale textures: the u16 tile atlas (K9). Normal and
+        # metal-roughness always come from the textures on this route.
+        trow, ty, tx, tfx, tfy = tile_index(
+            reg_lane(43, 0.0), reg_lane(44, 1.0), reg_lane(45, 1.0),
+            reg_lane(46, 1.0), u_uv, v_uv,
+        )
+        idx = torch.where(covered, trow, atlas.tiles_ntex + eq // 8)
+        tap_args = [a.reshape(-1) for a in (idx, ty, tx, eq % 8, tfx, tfy, efx, efy)]
+        out16 = tile_tap_resolve(atlas.tiles, *tap_args).reshape(16, hp, wp_)
+        base_color, nm = out16[0:3], out16[3:6]
+        roughness, metalness = out16[6:7], out16[7:8]
+        background = out16[8:11]
     else:
-        metalness = gbuf[38:39]  # mr const blue
-        roughness = gbuf[37:38]  # mr const green
+        tq, tfx, tfy = quad_index(
+            atlas.combined_block_grid, reg_lane(43, 0.0), reg_lane(44, 0.0),
+            reg_lane(45, 1.0), reg_lane(46, 1.0), u_uv, v_uv,
+        )
+        c4 = atlas.quad_width
+        per = 128 // c4
+        merged = atlas.combined_env_rows
+        ntex = merged.shape[0] - env.num_rows
+        idx = torch.where(covered, tq // per, ntex + eq // 8)
+        tap_args = [a.reshape(-1) for a in (idx, tq % per, eq % 8, tfx, tfy, efx, efy)]
+        out16 = tap_resolve(merged, *tap_args, c4=c4).reshape(16, hp, wp_)
+        nch = c4 // 4
+        background = out16[nch : nch + 3]
+        slot_base = {s: 4 * i for i, s in enumerate(atlas.combined_slots)}
+        base_color = out16[slot_base[0] : slot_base[0] + 3]
+        nm = out16[slot_base[1] : slot_base[1] + 3] if 1 in slot_base else gbuf[40:43]
+        if 2 in slot_base:
+            metalness = out16[slot_base[2] + 2][None]
+            roughness = out16[slot_base[2] + 1][None]
+        else:
+            metalness = gbuf[38:39]  # mr const blue
+            roughness = gbuf[37:38]  # mr const green
 
     # get_normal (forward.hlsl:104-112): green flip, [0,1]->[-1,1], TBN.
     nm = torch.cat([nm[0:1], 1.0 - nm[1:2], nm[2:3]])
@@ -349,7 +367,7 @@ def render_frame_stats(
 
     stats = {
         "cam_pairs": cam_pairs,
-        "cam_pair_cap": config.pair_capacity(setup.capacity),
+        "cam_pair_cap": config.pair_capacity(setup.capacity, "cam"),
         "shadow_pairs": sh_pairs,
         "shadow_pair_cap": sh_cap,
         "pcf_rows": pcf_rows,
@@ -414,6 +432,54 @@ def check_stats(stats) -> None:
             f"capacity {cap}): overflowing rows got another row's shadow values. "
             f"Raise RenderConfig.pcf_row_cap."
         )
+
+
+def measure_pair_counts(buffers: SceneBuffers, params, config: RenderConfig) -> tuple[int, int]:
+    """Actual (camera, shadow) pair counts of a frame, with no sort and no
+    raster: the front end and the tile footprints of render_frame_stats
+    (the shadow count inside the sun-cull rect). ``params`` is one
+    SceneParams or a list of them (a camera path): a list gives the
+    element-wise max."""
+    use_full_f32()
+    geom = buffers.geometry
+    wc = world_corners(geom)
+    tri_valid = torch.arange(geom.capacity, device=buffers.device) < geom.num_tris
+    s = config.shadow_size
+    n_sh = -(-s // SHADOW_TILE)
+    cam = sh = 0
+    for p in params if isinstance(params, (list, tuple)) else [params]:
+        cam_pv, sun_pv = p.camera.proj_view(), p.sun.proj_view()
+        setup = raster.setup_screen_triangles(
+            raster.near_clip_corners(corners_clip(wc, cam_pv), tri_valid),
+            config.width, config.height, cull="back",
+        )
+        c = binning.count_pairs(setup, config.tiles_x, config.tiles_y, config.tile_w,
+                                config.tile_h)
+        sh_setup = raster.setup_screen_triangles(
+            raster.near_clip_corners(corners_clip(wc, sun_pv), tri_valid), s, s, cull="front"
+        )
+        rect, _ = sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
+        h = binning.count_pairs(sh_setup, n_sh, n_sh, SHADOW_TILE, SHADOW_TILE, rect=rect)
+        cam, sh = max(cam, int(c)), max(sh, int(h))
+    return cam, sh
+
+
+def autotune_pair_caps(
+    buffers: SceneBuffers, params, config: RenderConfig, margin: float = 2.0,
+    bucket: int = 65536,
+) -> RenderConfig:
+    """``config`` with pair caps sized to the scene: the real pair counts of
+    one frame (or the max over a list of params, a camera path), times
+    ``margin`` plus 8192, rounded up to a multiple of ``bucket``. Binning's
+    sort and gathers scale with the capacity, which the formula oversizes.
+    Overflow stays loud: a later frame above a tuned cap fails check_stats."""
+    cam, sh = measure_pair_counts(buffers, params, config)
+
+    def cap(n: int) -> int:
+        need = int(n * margin) + 8192
+        return max(bucket, -(-need // bucket) * bucket)
+
+    return dataclasses.replace(config, pair_cap_cam=cap(cam), pair_cap_shadow=cap(sh))
 
 
 def _check_device(buffers: SceneBuffers, device: torch.device) -> None:

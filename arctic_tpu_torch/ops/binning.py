@@ -65,6 +65,15 @@ def _tile_footprints(setup: TriSetup, tiles_x, tiles_y, tile_w, tile_h, rect=Non
     return counts, tx0, ty0, w
 
 
+def count_pairs(setup: TriSetup, tiles_x: int, tiles_y: int, tile_w: int, tile_h: int,
+                rect=None) -> torch.Tensor:
+    """Total (tile, slot) pairs bin_triangles would generate (0-dim i32),
+    without the sort: pipeline.autotune_pair_caps sizes the pair buffers
+    with it."""
+    counts = _tile_footprints(setup, tiles_x, tiles_y, tile_w, tile_h, rect)[0]
+    return counts.sum().to(torch.int32)
+
+
 def bin_triangles(
     setup: TriSetup, tiles_x: int, tiles_y: int, tile_w: int, tile_h: int,
     pair_capacity: int, rect=None,

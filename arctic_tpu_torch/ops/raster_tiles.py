@@ -237,8 +237,9 @@ def bin_and_rasterize(
 
     With ``shade_rows`` the kernel streams the 128-lane shade-row table
     itself (raster planes at lanes 112:124); otherwise the 16-float raster
-    row table (the shadow pass)."""
-    pair_cap = config.pair_capacity(setup.capacity)
+    row table (the shadow pass). A depth-only pass is the shadow pass and
+    takes its pair capacity."""
+    pair_cap = config.pair_capacity(setup.capacity, "shadow" if depth_only else "cam")
     pairs = binning.bin_triangles(setup, tiles_x, tile_rows, tw, th, pair_cap, rect=rect)
     if shade_rows is not None:
         rows, lane0 = shade_rows, SHADE_ROW_RASTER_LANE

@@ -1,6 +1,9 @@
 """Texture sampling with D3D linear-wrap semantics — torch port of the
-parts of arctic_tpu/ops/sampling.py the fused frame uses, around one CUDA
-kernel: K6 ``tap_resolve`` (csrc/tap_resolve.cu) for _tap_resolve_kernel.
+parts of arctic_tpu/ops/sampling.py the fused frame uses, around two CUDA
+kernels: K6 ``tap_resolve`` (csrc/tap_resolve.cu) for _tap_resolve_kernel,
+the merged bf16 quad table of small texture sets, and K9
+``tile_tap_resolve`` (csrc/tile_tap_resolve.cu) for _tile_tap_resolve_kernel,
+the u16 tile atlas of reference-scale texture sets.
 
 Bilinear filtering is ``t = uv * size - 0.5``, texel pair floor(t) and
 floor(t) + 1, fractional lerp, with WRAP applied per texel in region-local
@@ -14,7 +17,14 @@ from __future__ import annotations
 
 import torch
 
+from arctic_tpu_torch.ops.shadow import DQ
 from arctic_tpu_torch.utils import kernels
+
+# Tile-atlas geometry (io/build.py build_tile_atlas): 4x8-texel tiles on a
+# (3, 7)-stride grid, so every bilinear 2x2 window lies in the tile at
+# (ys // 3, xs // 7): ys % 3 <= 2 and xs % 7 <= 6.
+TILE_H, TILE_W = 4, 8
+TILE_SY, TILE_SX = 3, 7
 
 
 def _i32(v):
@@ -91,4 +101,79 @@ def tap_resolve(table, idx, tq, eq, tfx, tfy, efx, efy, c4: int):
     out = torch.empty((16, n), dtype=torch.float32, device=table.device)
     kernels.launch("arctic_tap_resolve", table, idx, tq, eq, tfx, tfy, efx, efy, n, c4, out)
     tap_resolve.launches += 1
+    return out
+
+
+def tile_index(base, ntx, th, tw, u, v):
+    """-> (row, ty, tx, fx, fy): tile-table row and in-tile window origin of
+    the u16 tile atlas. The ``t = uv * size - 0.5`` prologue and per-texel
+    WRAP of quad_index; (base, ntx) address the material's tile block.
+    Integer math is int32 with floor division / modulo, like jnp."""
+    base, ntx, th, tw = (_i32(a) for a in (base, ntx, th, tw))
+    t_x = u * tw - 0.5
+    t_y = v * th - 0.5
+    ix0 = torch.floor(t_x).to(torch.int32)
+    iy0 = torch.floor(t_y).to(torch.int32)
+    fx = t_x - ix0
+    fy = t_y - iy0
+    ys = iy0 % th + 1  # +1: the wrapped border row
+    xs = ix0 % tw + 1
+    row = base + (ys // TILE_SY) * ntx + xs // TILE_SX
+    return row, ys % TILE_SY, xs % TILE_SX, fx, fy
+
+
+def _lerp(c00, c10, c01, c11, fx, fy):
+    top = c00 + (c10 - c00) * fx
+    bot = c01 + (c11 - c01) * fx
+    return top + (bot - top) * fy
+
+
+def tile_tap_resolve_plain(table, idx, ty, tx, eq, tfx, tfy, efx, efy):
+    """Plain torch K9 (sampling.py:387-432): for each pixel, the 2x2 tile
+    window at (ty, tx) of row ``table[idx]`` — 8 u16 channels dequantised as
+    q * DQ and bilerped — and the env quad at lanes [16*eq, +16) of the same
+    row bitcast to f32 and bilerped. Reads only the lanes it needs (never
+    the (n, 128) rows). Returns (16, n) f32: [0:8) texture, [8:12) env,
+    zeros after."""
+    n = idx.shape[0]
+    dev = table.device
+    row = idx.long()[:, None]
+    win = (ty * 8 + tx).long()[:, None] + torch.tensor([0, 1, 8, 9], device=dev)
+    tex = []
+    for c2 in range(4):  # lane block c2 holds channels 2*c2 (low u16), 2*c2+1 (high)
+        v = table[row, c2 * 32 + win]  # (n, 4) i32: c00, c10, c01, c11
+        for q in (v & 0xFFFF, (v >> 16) & 0xFFFF):
+            c = q.to(torch.float32) * DQ
+            tex.append(_lerp(c[:, 0], c[:, 1], c[:, 2], c[:, 3], tfx, tfy))
+    e = table[row, 16 * eq.long()[:, None] + torch.arange(16, device=dev)].view(torch.float32)
+    env = _lerp(e[:, 0:4], e[:, 4:8], e[:, 8:12], e[:, 12:16], efx[:, None], efy[:, None])
+    zeros = torch.zeros((4, n), dtype=torch.float32, device=dev)
+    return torch.cat([torch.stack(tex), env.T, zeros]).contiguous()
+
+
+@kernels.kernel(
+    "tile_tap_resolve", "arctic_tpu_torch/csrc/tile_tap_resolve.cu",
+    "arctic_tpu/ops/sampling.py:373 (_tile_tap_resolve_kernel)",
+    tile_tap_resolve_plain,
+)
+def tile_tap_resolve(table, idx, ty, tx, eq, tfx, tfy, efx, efy):
+    """K9: tile-atlas texture + environment tap of n pixels.
+
+    table: (N, 128) i32 tile atlas with env copies (TextureAtlas.tiles);
+    idx: (n,) i32 table rows; ty: (n,) i32 in [0, 3); tx: (n,) i32 in
+    [0, 7); eq: (n,) i32 env quad within the row, [0, 8); tfx/tfy/efx/efy:
+    (n,) f32 bilinear fractions. Returns (16, n) f32: [0:8) the texture
+    channels (diffuse RGB, normal XYZ, mr G, mr B), [8:12) env RGBA, zeros
+    after."""
+    if not table.is_cuda:
+        return tile_tap_resolve_plain(table, idx, ty, tx, eq, tfx, tfy, efx, efy)
+    n = idx.shape[0]
+    kernels.check_cuda(table, "table", torch.int32, (table.shape[0], 128))
+    for name, t in (("idx", idx), ("ty", ty), ("tx", tx), ("eq", eq)):
+        kernels.check_cuda(t, name, torch.int32, (n,))
+    for name, t in (("tfx", tfx), ("tfy", tfy), ("efx", efx), ("efy", efy)):
+        kernels.check_cuda(t, name, torch.float32, (n,))
+    out = torch.empty((16, n), dtype=torch.float32, device=table.device)
+    kernels.launch("arctic_tile_tap_resolve", table, idx, ty, tx, eq, tfx, tfy, efx, efy, n, out)
+    tile_tap_resolve.launches += 1
     return out

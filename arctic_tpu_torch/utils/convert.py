@@ -51,22 +51,31 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def scene_buffers(jb, device="cpu") -> SceneBuffers:
-    """JAX-package SceneBuffers (default build route) -> SceneBuffers."""
+    """JAX-package SceneBuffers (the combined quad atlas or the ungrouped
+    tile atlas) -> SceneBuffers."""
     g, a, e = jb.geometry, jb.atlas, jb.environment
-    if a.combined_env_rows is None:
-        raise ValueError("scene buffers without the merged texture+environment table")
     geometry = Geometry(
         num_tris=int(np.asarray(g.num_tris)),
         tri_corner_pos=tensor(g.tri_corner_pos, device),
         tri_trs=tensor(g.tri_trs, device),
         slot_static_rows=tensor(g.slot_static_rows, device),
     )
-    atlas = TextureAtlas(
-        combined_slots=tuple(a.combined_slots),
-        combined_shape=tuple(a.combined_shape),
-        quad_width=int(np.asarray(a.combined_quads).shape[-1]),
-        combined_env_rows=tensor(a.combined_env_rows, device),
-    )
+    if a.tiles is not None:
+        atlas = TextureAtlas(
+            tiles=tensor(a.tiles, device),
+            tiles_ntex=int(a.tiles_ntex),
+            tile_groups=tuple(tuple(int(v) for v in grp) for grp in a.tile_groups),
+        )
+    elif a.combined_env_rows is not None:
+        atlas = TextureAtlas(
+            combined_slots=tuple(a.combined_slots),
+            combined_shape=tuple(a.combined_shape),
+            quad_width=int(np.asarray(a.combined_quads).shape[-1]),
+            combined_env_rows=tensor(a.combined_env_rows, device),
+        )
+    else:
+        raise ValueError("scene buffers with neither the tile atlas nor the merged "
+                         "texture+environment table")
     env = Environment(
         region=tuple(int(v) for v in np.asarray(e.atlas.regions)[0, 0]),
         data_shape=tuple(np.asarray(e.atlas.data).shape[:2]),
@@ -159,17 +168,25 @@ def tri_setup(js, device="cpu"):
 
 
 def scene_leaves(b: SceneBuffers) -> dict:
-    """The port's scene leaves as numpy arrays / plain values, by name."""
+    """The port's scene leaves as numpy arrays / plain values, by name
+    (None for the fields of the texture route the scene does not take)."""
     g, a, e = b.geometry, b.atlas, b.environment
+
+    def arr(t):
+        return None if t is None else to_numpy(t)
+
     return {
         "num_tris": g.num_tris,
         "tri_corner_pos": to_numpy(g.tri_corner_pos),
         "tri_trs": to_numpy(g.tri_trs),
         "slot_static_rows": to_numpy(g.slot_static_rows),
         "combined_slots": a.combined_slots,
-        "combined_shape": tuple(a.combined_shape),
+        "combined_shape": None if a.combined_shape is None else tuple(a.combined_shape),
         "quad_width": a.quad_width,
-        "combined_env_rows": to_numpy(a.combined_env_rows),
+        "combined_env_rows": arr(a.combined_env_rows),
+        "tiles": arr(a.tiles),
+        "tiles_ntex": a.tiles_ntex,
+        "tile_groups": a.tile_groups,
         "env_region": e.region,
         "env_data_shape": tuple(e.data_shape),
         "env_num_rows": e.num_rows,

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "arctic_pack_shade_rows": (_P, _P, _I, _I, _P, _P),
     "arctic_select_interp": (_P, _P, _I, _I, _P, _P),
     "arctic_tap_resolve": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    "arctic_tile_tap_resolve": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
     "arctic_window_lut_q": (_P, _I, _I, _P, _I, _P, _P),
     "arctic_pcf_eval": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P),
 }

@@ -3,32 +3,48 @@
 
     python3 chip_smoke.py
 
-Two frame paths are driven: the default one (exact f32 PCF; kernels K1
-raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve) and the
+Three frame paths are driven: the default one (exact f32 PCF; kernels K1
+raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve), the
 quantised PCF path of RenderConfig.pcf_row_cap (the same four plus K7
-window_lut_q and K8 pcf_eval), with and without a sun cache. Phases, each
-of which raises on failure (exit code != 0):
+window_lut_q and K8 pcf_eval), with and without a sun cache, and the
+textured path of reference-scale texture sets (the u16 tile atlas: K1, K3,
+K4 and K9 tile_tap_resolve in place of K6). Phases, each of which raises on
+failure (exit code != 0):
 
 1. device check: refuses to run without CUDA (no CPU fallback); prints the
    card's name and power limit as nvidia-smi reports them;
 2. kernel build: compiles csrc/*.cu with nvcc (sm_90a, -fmad=false), one
    process per source;
 3. entry frames: Cornell at 256x192 with a 256^2 shadow map through the
-   port's renderer on the card, on the default path and on the quantised
-   path with pcf_row_cap=384 (every row). Each path must launch each of its
-   kernels; each frame must be within 1 u8 LSB of the port's CPU frame
-   (plain torch versions) on < 1% of the pixels, with equal pair stats, and
-   >= 40 dB PSNR against the f64 golden oracle; check_stats must pass;
+   port's renderer on the card, on the default path, on the quantised
+   path with pcf_row_cap=384 (every row) and (3c) on the textured path
+   (the same scene forced onto the tile atlas, tile_threshold_texels=0).
+   Each path must launch each of its kernels (the textured path K9 and
+   never K6, the others K6 and never K9); each frame must be within 1 u8
+   LSB of the port's CPU frame (plain torch versions) on < 1% of the
+   pixels, with equal pair stats, and >= 40 dB PSNR against the f64 golden
+   oracle (which samples the material images, not an atlas); check_stats
+   must pass;
 4. real size: the Sponza-class scene (251,500 tris) at 1920x1080 with a
    4000^2 shadow map, ACES, 4 static point lights, the bench viewpoint and
-   light rig; 5 fly-through frames on the default path, each passing
-   check_stats and not black. Launch counts are zeroed right before each
-   path's frames and read right after;
+   light rig, pair caps from autotune_pair_caps(margin=1.4) over bench.py's
+   20 fly-through viewpoints; 5 fly-through frames on the default path,
+   each passing check_stats and not black; frame 19 against
+   docs/images/bench_golden.png is printed for the record (bench.py made
+   that frame through a glTF round trip, which the port lacks). Launch
+   counts are zeroed right before each path's frames and read right after;
 4b. the quantised path at real size: frame 0 with every row in the cap
    gives pcf_rows; the cap becomes 32 * ceil(1.4 * pcf_rows / 32), frame 0
    at that cap must be bit-identical, then the 5-frame fly-through;
 4c. the cached sun at real size: build_sun_cache, then the 5 frames with
    the cache, each within 1 LSB of the uncached frame of 4b;
+4d. the textured path at real size: sponza_like_scene(texture_size=1024,
+   n_materials=24) on the tile atlas, its own tuned pair caps, the 5-frame
+   fly-through (K9 once a frame, K6 never), and frame 19 gated against
+   docs/images/bench_tex1024.png: >= 99% of its pixels within 8 LSB and
+   >= 40 dB (bench.py's min_db) over them (the whole-frame PSNR is printed:
+   near-tied depths, which the TPU rounded its own way, flip whole surface
+   patches at the column capitals);
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded): bit-exact
    equality, CUDA-event times of kernel and plain version at the real-size
@@ -36,10 +52,12 @@ of which raises on failure (exit code != 0):
    or f32 operations over 67 TFLOP/s, whichever is larger).
 
 The second-to-last line is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Frames are saved under build/chip_smoke/ as .npy.
-``--profile`` adds a torch.profiler pass over two real-size frames of each
-path (busy share, per-pass device time, top kernels; these lines, the
-profiler's table and a trace in build/chip_smoke/, one file per path).
+{"ok": true, "device": {...}}. Frames are saved under build/chip_smoke/ as
+.npy. The goldens are read by read_png (zlib and numpy: the card's machine
+has no Pillow). ``--profile`` adds a torch.profiler pass over two
+real-size frames of each path (busy share, per-pass device time, top
+kernels; these lines, the profiler's table and a trace in
+build/chip_smoke/, one file per path).
 """
 
 from __future__ import annotations
@@ -63,24 +81,41 @@ REAL_LIGHTS = [
     ((12.0, 3.0, 4.0), (30.0, 8.0, 8.0)),
 ]
 FLY_FRAMES = 5
+# bench.py's fly-through: 20 viewpoints; its goldens are the last one's frame.
+BENCH_FRAMES = 20
+# Pair-cap headroom over the camera path's counts (bench.py:448-453).
+PAIR_MARGIN = 1.4
+# The real-size golden gate. The TPU that made bench.py's goldens decided
+# near-tied depths with its own f32 rounding, so pixels where two surfaces
+# nearly coincide (the column capitals' spheres against the shaft tops) may
+# show the other surface here. The gate: at least GOLDEN_NEAR_SHARE of the
+# pixels within GOLDEN_NEAR_LSB of the golden (the JAX package's tile-vs-quad
+# bound, test_sampling_variants.py:156), and bench.py's min_db over them.
+GOLDEN_MIN_DB = 40.0
+GOLDEN_NEAR_LSB = 8
+GOLDEN_NEAR_SHARE = 0.99
 # Every 128-pixel row of the entry frame: 4 x 3 tiles of 64^2 = 32 rows each.
 ENTRY_ROWS = 384
 # Penumbra row cap headroom over frame 0's count at real size.
 CAP_MARGIN = 1.4
 DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve")
 QUANT_PATH = DEFAULT_PATH + ("window_lut_q", "pcf_eval")
+TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve")
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def entry_scene(device, pcf_row_cap=None):
+def entry_scene(device, pcf_row_cap=None, textured=False):
+    """The entry configuration; ``textured`` forces the scene onto the tile
+    atlas (tile_threshold_texels=0)."""
     from arctic_tpu_torch.core.config import RenderConfig
     from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
     from arctic_tpu_torch.io.build import build_buffers
@@ -89,7 +124,8 @@ def entry_scene(device, pcf_row_cap=None):
     w, h, s = ENTRY["width"], ENTRY["height"], ENTRY["shadow"]
     config = RenderConfig(width=w, height=h, shadow_size=s, pcf_row_cap=pcf_row_cap)
     scene = cornell_like_scene()
-    bufs = build_buffers(*scene, tri_bucket=256, device=device)
+    bufs = build_buffers(*scene, tri_bucket=256, device=device,
+                         tile_threshold_texels=0 if textured else None)
     params = default_scene_params(aspect=w / h)
     params.camera = make_camera(ENTRY["eye"], ENTRY["rot"], w / h)
     return config, scene, bufs, params, default_settings()
@@ -121,35 +157,44 @@ def golden_frame(scene, params, settings, config):
     )
 
 
-def check_launches(counts, path, label):
-    """Fail unless every kernel of ``path`` launched in the run just read."""
+def check_launches(counts, path, label, absent=()):
+    """Fail unless every kernel of ``path`` launched in the run just read,
+    and none of ``absent`` did."""
     missing = [k for k in path if counts[k] < 1]
     if missing:
         raise RuntimeError(f"{label}: kernels of the path never launched: {missing} ({counts})")
+    stray = [k for k in absent if counts[k] != 0]
+    if stray:
+        raise RuntimeError(f"{label}: kernels of another path launched: {stray} ({counts})")
 
 
-def run_entry(device, pcf_row_cap=None):
-    """Entry frame on ``device`` (the quantised path with ``pcf_row_cap``);
-    returns (img, recorded kernel calls)."""
+def run_entry(device, oracle, pcf_row_cap=None, textured=False):
+    """Entry frame on ``device`` (the quantised path with ``pcf_row_cap``,
+    the tile atlas with ``textured``), held against the CPU frame and the
+    f64 ``oracle`` frame; returns (img, recorded kernel calls)."""
     import numpy as np
     import torch
 
     from arctic_tpu_torch.models import golden, pipeline
     from arctic_tpu_torch.utils import kernels
 
-    label = "entry" if pcf_row_cap is None else "quant entry"
-    config, scene, bufs, params, settings = entry_scene(device, pcf_row_cap)
+    label = "textured entry" if textured else "entry" if pcf_row_cap is None else "quant entry"
+    config, scene, bufs, params, settings = entry_scene(device, pcf_row_cap, textured)
     kernels.reset_launch_counts()
     with kernels.record_calls() as calls:
         img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
     log(f"{label} frame launches: {counts}")
-    check_launches(counts, DEFAULT_PATH if pcf_row_cap is None else QUANT_PATH, label)
+    if textured:
+        check_launches(counts, TEX_PATH, label, absent=("tap_resolve",))
+    else:
+        check_launches(counts, DEFAULT_PATH if pcf_row_cap is None else QUANT_PATH, label,
+                       absent=("tile_tap_resolve",))
     pipeline.check_stats(stats)
     img = img.cpu().numpy()
 
-    cpu_bufs = entry_scene("cpu", pcf_row_cap)[2]
+    cpu_bufs = entry_scene("cpu", pcf_row_cap, textured)[2]
     img_cpu, stats_cpu = pipeline.render_frame_stats(cpu_bufs, params, settings, config)
     img_cpu = img_cpu.numpy()
     diff = np.abs(img.astype(np.int32) - img_cpu.astype(np.int32))
@@ -164,12 +209,12 @@ def run_entry(device, pcf_row_cap=None):
     pairs = [k for k in s_dev if "pair" in k]
     if any(s_dev[k] != s_cpu[k] for k in pairs):
         raise RuntimeError(f"{label} pair stats differ from the CPU run: {s_cpu}")
-    db = golden.psnr(img, golden_frame(scene, params, settings, config))
+    db = golden.psnr(img, oracle)
     log(f"{label} frame PSNR vs f64 golden oracle: {db:.2f} dB")
     if db < 40.0:
         raise RuntimeError(f"{label} frame PSNR {db:.2f} dB < 40 dB")
     os.makedirs(OUT_DIR, exist_ok=True)
-    name = "entry" if pcf_row_cap is None else "entry_quant"
+    name = "entry_tex" if textured else "entry" if pcf_row_cap is None else "entry_quant"
     np.save(os.path.join(OUT_DIR, f"chip_smoke_{name}.npy"), img)
     return img, calls
 
@@ -195,34 +240,181 @@ def real_params(i: int):
     return params, Settings(tm_method=TM_ACES, gamma=_f32(2.2), exposure=_f32(1.0))
 
 
-def real_config(pcf_row_cap=None):
+def real_config():
+    """The real-size config with the pair caps of the RenderConfig formula."""
     from arctic_tpu_torch.core.config import RenderConfig
 
     return RenderConfig(
         width=REAL["width"], height=REAL["height"], shadow_size=REAL["shadow"],
-        static_point_lights=4, pcf_row_cap=pcf_row_cap,
+        static_point_lights=4,
     )
 
 
-def real_buffers(device):
+def tune_caps(bufs, label: str):
+    """real_config() with the pair caps autotune_pair_caps gives over
+    bench.py's 20 viewpoints (bench.py:448-453); prints them beside the
+    formula's."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+
+    formula = real_config()
+    path = [real_params(i)[0] for i in range(BENCH_FRAMES)]
+    t = time.perf_counter()
+    tuned = pipeline.autotune_pair_caps(bufs, path, formula, margin=PAIR_MARGIN)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    cam, sh = pipeline.measure_pair_counts(bufs, path, formula)
+    slots = 2 * bufs.geometry.capacity
+    log(f"{label} pair caps over {BENCH_FRAMES} viewpoints (autotune {ms:.1f} ms): "
+        f"max pairs cam {cam}, shadow {sh}; caps cam {formula.pair_capacity(slots, 'cam')} "
+        f"(formula) -> {tuned.pair_capacity(slots, 'cam')}, shadow "
+        f"{formula.pair_capacity(slots, 'shadow')} -> {tuned.pair_capacity(slots, 'shadow')}")
+    return tuned
+
+
+def real_buffers(device, textured=False):
+    """The Sponza-class scene on ``device``; ``textured``: with 24 materials
+    of three 1024^2 maps (bench.py's textured_scene), on the tile atlas."""
     import torch
 
     from arctic_tpu_torch.io.build import build_buffers
     from arctic_tpu_torch.io.procedural import sponza_like_scene
 
     t0 = time.perf_counter()
-    bufs = build_buffers(*sponza_like_scene(), device=device)
+    scene = sponza_like_scene(texture_size=1024, n_materials=24) if textured else sponza_like_scene()
+    t1 = time.perf_counter()
+    bufs = build_buffers(*scene, device=device)
     torch.cuda.synchronize()
-    log(f"real-size scene build: {bufs.geometry.num_tris} tris, capacity "
-        f"{bufs.geometry.capacity}, {time.perf_counter() - t0:.1f} s")
+    t2 = time.perf_counter()
+    label = "textured real-size" if textured else "real-size"
+    log(f"{label} scene: {bufs.geometry.num_tris} tris, capacity {bufs.geometry.capacity}; "
+        f"generated in {t1 - t0:.1f} s, built in {t2 - t1:.1f} s")
+    if textured:
+        tiles = bufs.atlas.tiles
+        if tiles is None:
+            raise RuntimeError("the textured scene did not take the tile atlas")
+        log(f"{label} tile atlas: {tiles.shape[0]} rows, {tiles.numel() * 4} B, "
+            f"{len(bufs.atlas.tile_groups)} groups, env copy {bufs.environment.num_rows} rows")
     return bufs
 
 
-def fly_through(render, bufs, frames, path, label, *extra):
+def read_png(path):
+    """(H, W, 3) u8 of an 8-bit RGB or RGBA, non-interlaced PNG (alpha
+    dropped), with the standard library's zlib and numpy. Raises on any
+    other PNG. The rows are unfiltered along anti-diagonals: pixel (y, x)
+    depends only on (y, x-1), (y-1, x) and (y-1, x-1), so each diagonal is
+    one vectorised step whatever the rows' filter types."""
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, ihdr, idat = 8, None, []
+    while pos + 12 <= len(data):
+        n = int.from_bytes(data[pos : pos + 4], "big")
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        if zlib.crc32(kind + body) != int.from_bytes(data[pos + 8 + n : pos + 12 + n], "big"):
+            raise ValueError(f"{path}: bad CRC in chunk {kind!r}")
+        pos += 12 + n
+        if kind == b"IHDR":
+            ihdr = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if ihdr is None or not idat:
+        raise ValueError(f"{path}: no IHDR or IDAT chunk")
+    w, h = int.from_bytes(ihdr[0:4], "big"), int.from_bytes(ihdr[4:8], "big")
+    depth, ctype, comp, filt, interlace = ihdr[8:13]
+    if depth != 8 or ctype not in (2, 6) or comp or filt or interlace:
+        raise ValueError(f"{path}: only 8-bit RGB / RGBA, non-interlaced PNGs are read "
+                         f"(depth {depth}, colour type {ctype}, interlace {interlace})")
+    bpp = 3 if ctype == 2 else 4
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * bpp):
+        raise ValueError(f"{path}: {raw.size} bytes of image data for {w}x{h}x{bpp}")
+    raw = raw.reshape(h, 1 + w * bpp)
+    ftype = raw[:, 0].astype(np.int16)
+    if ftype.max() > 4:
+        raise ValueError(f"{path}: unknown filter type {ftype.max()}")
+    px = raw[:, 1:].reshape(h, w, bpp).astype(np.int16)
+    out = np.zeros((h + 1, w + 1, bpp), np.int16)  # a zero row above, column left
+    for d in range(h + w - 1):
+        y = np.arange(max(0, d - w + 1), min(h, d + 1))
+        x = d - y
+        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        f = ftype[y][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4], [a, b, (a + b) // 2, paeth], 0)
+        out[y + 1, x + 1] = (px[y, x] + pred) & 255
+    return out[1:, 1:, :3].astype(np.uint8)
+
+
+def golden_compare(img, name: str) -> dict:
+    """A u8 frame against docs/images/<name>: the whole-frame PSNR
+    (bench.py's check_golden), the share of pixels whose channels all lie
+    within GOLDEN_NEAR_LSB of the golden, and the PSNR over those pixels."""
+    import numpy as np
+
+    from arctic_tpu_torch.models import golden
+
+    gold = read_png(os.path.join(REPO, "docs", "images", name))
+    if gold.shape != img.shape:
+        raise RuntimeError(f"frame shape {img.shape} != golden {name} {gold.shape}")
+    near = np.abs(img.astype(np.int32) - gold.astype(np.int32)).max(axis=2) <= GOLDEN_NEAR_LSB
+    return dict(db=golden.psnr(img, gold), near=float(near.mean()),
+                near_db=golden.psnr(img[near], gold[near]))
+
+
+def depth_probe(render, bufs, last, name: str, eps: float = 1e-4) -> float:
+    """Share of the pixels more than GOLDEN_NEAR_LSB from docs/images/<name>
+    that lie within one pixel of a pixel that changes when frame 19 is
+    rendered again with z_near moved by -+eps (relative): a change of the
+    depths alone (x, y and w of the clip coordinates do not depend on
+    z_near), so the pixels that change are those whose surface is decided by
+    a near tie of depths."""
+    import numpy as np
+    import torch
+
+    gold = read_png(os.path.join(REPO, "docs", "images", name))
+    far = np.abs(last.astype(np.int32) - gold.astype(np.int32)).max(axis=2) > GOLDEN_NEAR_LSB
+    flips = np.zeros(far.shape, bool)
+    for sign in (-1.0, 1.0):
+        params, settings = real_params(BENCH_FRAMES - 1)
+        params.camera.z_near = torch.tensor(float(params.camera.z_near) * (1.0 + sign * eps),
+                                            dtype=torch.float32)
+        img, _ = render(bufs, params, settings)
+        flips |= (img.cpu().numpy() != last).any(axis=2)
+    near_flip = flips.copy()
+    for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        near_flip |= np.roll(flips, (dy, dx), axis=(0, 1))
+    return float(near_flip[far].mean()) if far.any() else 1.0
+
+
+def last_bench_frame(render, bufs, *extra):
+    """bench.py's golden frame: fly-through viewpoint 19, on the host."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+
+    img, stats = render(bufs, *real_params(BENCH_FRAMES - 1), *extra)
+    torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+    return img.cpu().numpy()
+
+
+def fly_through(render, bufs, frames, path, label, *extra, absent=()):
     """Time ``render`` over the frames with the launch counts zeroed right
-    before and read right after; returns (ms list, stats list, frames on the
-    host, launch counts, (peak bytes, bytes already allocated before the
-    frames: the script's own retained tensors, not the path's))."""
+    before and read right after (every kernel of ``path`` must launch, none
+    of ``absent``); returns (ms list, stats list, frames on the host, launch
+    counts, (peak bytes, bytes already allocated before the frames: the
+    script's own retained tensors, not the path's))."""
     import torch
 
     from arctic_tpu_torch.models import pipeline
@@ -242,7 +434,7 @@ def fly_through(render, bufs, frames, path, label, *extra):
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"{label} launches over {len(frames)} frames: {counts}")
-    check_launches(counts, path, label)
+    check_launches(counts, path, label, absent)
     for st in all_stats:
         pipeline.check_stats(st)
     return times, all_stats, [im.cpu().numpy() for im in imgs], counts, (peak, resident)
@@ -254,16 +446,17 @@ def _mem(mem) -> str:
             f"{peak - resident} B above that)")
 
 
-def run_real(device, bufs, profile: bool = False):
-    """Real-size fly-through on the default path; returns (summary dict,
-    recorded kernel calls, launch counts of the timed frames)."""
+def run_real(device, bufs, config, profile: bool = False):
+    """Real-size fly-through on the default path, then frame 19 against
+    bench_golden.png for the record; returns (summary dict, recorded
+    kernel calls, launch counts of the timed frames)."""
     import numpy as np
     import torch
 
     from arctic_tpu_torch.models import pipeline
     from arctic_tpu_torch.utils import kernels
 
-    render = pipeline.make_renderer_stats(real_config(), device)
+    render = pipeline.make_renderer_stats(config, device)
 
     params, settings = real_params(0)
     with kernels.record_calls() as calls:  # warm-up frame; its inputs feed phase 5
@@ -273,7 +466,7 @@ def run_real(device, bufs, profile: bool = False):
 
     frames = [real_params(i) for i in range(FLY_FRAMES)]
     times, all_stats, imgs, counts, mem = fly_through(
-        render, bufs, frames, DEFAULT_PATH, "real-size"
+        render, bufs, frames, DEFAULT_PATH, "real-size", absent=("tile_tap_resolve",)
     )
     s = {k: int(v) for k, v in all_stats[-1].items()}
     if profile:
@@ -288,14 +481,21 @@ def run_real(device, bufs, profile: bool = False):
     )
     log(f"real-size frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
         f"(all {['%.3f' % t for t in times]}), {_mem(mem)}, stats {s}")
+    last = last_bench_frame(render, bufs)
+    np.save(os.path.join(OUT_DIR, "chip_smoke_real_19.npy"), last)
+    g = summary["golden"] = golden_compare(last, "bench_golden.png")
+    log(f"real-size frame 19 vs bench_golden.png (for the record: that golden went "
+        f"through bench.py's glTF round trip): {g['db']:.2f} dB whole frame; "
+        f"{g['near']:.4%} of pixels within {GOLDEN_NEAR_LSB} LSB, {g['near_db']:.2f} dB over them")
     return summary, calls, counts
 
 
-def run_real_quant(device, bufs, profile: bool = False):
-    """The quantised PCF path at real size: frame 0 with every row in the
-    cap, then at the tight cap (bit-identical), then the fly-through.
-    Returns (summary, recorded calls of the tight-cap frame 0, launch
-    counts of the fly-through, its frames on the host, its config)."""
+def run_real_quant(device, bufs, config, profile: bool = False):
+    """The quantised PCF path at real size (``config``'s pair caps): frame 0
+    with every row in the cap, then at the tight cap (bit-identical), then
+    the fly-through. Returns (summary, recorded calls of the tight-cap frame
+    0, launch counts of the fly-through, its frames on the host, its
+    config)."""
     import dataclasses
     import math
 
@@ -304,7 +504,6 @@ def run_real_quant(device, bufs, profile: bool = False):
     from arctic_tpu_torch.models import pipeline
     from arctic_tpu_torch.utils import kernels
 
-    config = real_config()
     every = config.num_tiles * config.tile_h * config.tile_w // 128
     config = dataclasses.replace(config, pcf_row_cap=every)
     params, settings = real_params(0)
@@ -326,7 +525,7 @@ def run_real_quant(device, bufs, profile: bool = False):
 
     frames = [real_params(i) for i in range(FLY_FRAMES)]
     times, all_stats, imgs, counts, mem = fly_through(
-        render, bufs, frames, QUANT_PATH, "quant real-size"
+        render, bufs, frames, QUANT_PATH, "quant real-size", absent=("tile_tap_resolve",)
     )
     if profile:
         profile_frames(render, bufs, frames[:2], "quant")
@@ -362,7 +561,8 @@ def run_cached(device, bufs, config, uncached, profile: bool = False):
     if pairs > cap:
         raise RuntimeError("the sun cache's shadow pass overflowed its pair buffer")
     times, all_stats, imgs, _, mem = fly_through(
-        render, bufs, frames, DEFAULT_PATH + ("pcf_eval",), "cached real-size", cache
+        render, bufs, frames, DEFAULT_PATH + ("pcf_eval",), "cached real-size", cache,
+        absent=("tile_tap_resolve", "window_lut_q"),
     )
     if profile:
         profile_frames(render, bufs, frames[:2], "cached", cache)
@@ -379,6 +579,56 @@ def run_cached(device, bufs, config, uncached, profile: bool = False):
     log(f"cached real-size frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
         f"(all {['%.3f' % t for t in times]}), pcf_rows {summary['pcf_rows']}, {_mem(mem)}")
     return summary
+
+
+def run_textured(device, profile: bool = False):
+    """The textured path at real size: the reference-scale texture set on
+    the tile atlas with its own tuned pair caps, the fly-through (K9 once a
+    frame, K6 never) and frame 19 gated against bench_tex1024.png. Returns
+    (summary, recorded calls of the warm-up frame, launch counts of the
+    fly-through)."""
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    bufs = real_buffers(device, textured=True)
+    config = tune_caps(bufs, "textured real-size")
+    render = pipeline.make_renderer_stats(config, device)
+    params, settings = real_params(0)
+    with kernels.record_calls() as calls:  # warm-up frame; its inputs feed phase 5
+        img, stats = render(bufs, params, settings)
+        torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+
+    frames = [real_params(i) for i in range(FLY_FRAMES)]
+    times, all_stats, imgs, counts, mem = fly_through(
+        render, bufs, frames, TEX_PATH, "textured real-size", absent=("tap_resolve",)
+    )
+    if counts["tile_tap_resolve"] != len(frames):
+        raise RuntimeError(f"K9 launched {counts['tile_tap_resolve']} times in {len(frames)} frames")
+    if profile:
+        profile_frames(render, bufs, frames[:2], "textured")
+    if imgs[-1].mean() < 5.0:
+        raise RuntimeError(f"textured real-size frame is wrong: mean {imgs[-1].mean():.2f}")
+    last = last_bench_frame(render, bufs)
+    np.save(os.path.join(OUT_DIR, "chip_smoke_real_tex_19.npy"), last)
+    g = golden_compare(last, "bench_tex1024.png")
+    g["depth_tied"] = depth_probe(render, bufs, last, "bench_tex1024.png")
+    summary = dict(ms_per_frame_median=statistics.median(times), ms_per_frame=times,
+                   max_memory_allocated=mem[0], golden=g,
+                   stats={k: int(v) for k, v in all_stats[-1].items()})
+    log(f"textured real-size frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
+        f"(all {['%.3f' % t for t in times]}), {_mem(mem)}, stats {summary['stats']}")
+    log(f"textured real-size frame 19 vs bench_tex1024.png: {g['db']:.2f} dB whole frame; "
+        f"{g['near']:.4%} of pixels within {GOLDEN_NEAR_LSB} LSB, {g['near_db']:.2f} dB over "
+        f"them (gate: >= {GOLDEN_NEAR_SHARE:.0%} and >= {GOLDEN_MIN_DB} dB); of the pixels "
+        f"further off, {g['depth_tied']:.2%} lie within 1 px of a pixel that a 1e-4 relative "
+        f"move of z_near changes")
+    if g["near"] < GOLDEN_NEAR_SHARE or g["near_db"] < GOLDEN_MIN_DB:
+        raise RuntimeError(f"textured frame 19 fails its golden gate: {g}")
+    return summary, calls, counts
 
 
 RANGES = ("shadow_pass", "forward_visibility", "forward_shade_skybox", "pcf_shadow",
@@ -440,17 +690,23 @@ def _tensors(out):
 def max_abs_diff(a, b) -> float:
     """Max |a - b| where both are numbers; inf if the shapes, dtypes or NaN
     positions differ (NaNs sit in never-binned dead slots of the shade-row
-    table, the same in both versions)."""
+    table and in the channels no one reads of K9's output — a tile row's
+    bits seen as f32 — the same in both versions). Where neither side is
+    NaN, equal bit patterns count as equal (so do two equal infinities)."""
     import torch
 
     if a.shape != b.shape or a.dtype != b.dtype:
         return float("inf")
-    a, b = a.double(), b.double()
+    if a.dtype == torch.uint16:
+        a, b = a.to(torch.int32), b.to(torch.int32)
     nan_a, nan_b = torch.isnan(a), torch.isnan(b)
     if not torch.equal(nan_a, nan_b):
         return float("inf")
-    d = (a[~nan_a] - b[~nan_b]).abs()
-    return d.max().item() if d.numel() else 0.0
+    a, b = a[~nan_a], b[~nan_b]
+    differ = a != b
+    if not bool(differ.any()):
+        return 0.0
+    return (a[differ].double() - b[differ].double()).abs().max().item()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -511,6 +767,12 @@ def work(name, args, kw):
         n = idx.numel()
         c4 = kw["c4"]
         return 4 * 7 * n + 256 * _distinct(idx, table.shape[0]) + 4 * 16 * n, 9 * (c4 // 4 + 4) * n
+    if name == "tile_tap_resolve":
+        table, idx = args[:2]
+        n = idx.numel()
+        # 8 per-pixel inputs, the distinct 512 B rows, 16 f32 planes out;
+        # 8 channels x (4 dequantise + 9 lerp) + 4 env channels x 9 lerp
+        return 4 * 8 * n + 512 * _distinct(idx, table.shape[0]) + 4 * 16 * n, 140 * n
     if name == "window_lut_q":
         src, s, y_range = args
         lo, hi = y_range.tolist()
@@ -606,31 +868,45 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> {os.path.basename(lib)}")
 
     dev = torch.device("cuda")
-    _, entry_calls = run_entry(dev)
-    _, qentry_calls = run_entry(dev, pcf_row_cap=ENTRY_ROWS)
+    config, scene, _, params, settings = entry_scene("cpu")
+    t0 = time.perf_counter()
+    oracle = golden_frame(scene, params, settings, config)
+    log(f"entry f64 golden oracle frame: {time.perf_counter() - t0:.1f} s")
+    _, entry_calls = run_entry(dev, oracle)
+    _, qentry_calls = run_entry(dev, oracle, pcf_row_cap=ENTRY_ROWS)
+    _, tentry_calls = run_entry(dev, oracle, textured=True)
     bufs = real_buffers(dev)
+    base = tune_caps(bufs, "real-size")
     profile = "--profile" in sys.argv[1:]
-    summary, real_calls, counts = run_real(dev, bufs, profile)
-    qsummary, qreal_calls, qcounts, uncached, qconfig = run_real_quant(dev, bufs, profile)
+    summary, real_calls, counts = run_real(dev, bufs, base, profile)
+    qsummary, qreal_calls, qcounts, uncached, qconfig = run_real_quant(dev, bufs, base, profile)
     csummary = run_cached(dev, bufs, qconfig, uncached, profile)
+    tsummary, treal_calls, tcounts = run_textured(dev, profile)
     log(f"real-size ms/frame medians (one call, one card): default "
         f"{summary['ms_per_frame_median']:.3f}, quant {qsummary['ms_per_frame_median']:.3f}, "
-        f"cached sun {csummary['ms_per_frame_median']:.3f}")
+        f"cached sun {csummary['ms_per_frame_median']:.3f}, "
+        f"textured {tsummary['ms_per_frame_median']:.3f}")
     own = ("window_lut_q", "pcf_eval")
     cmps = [
         compare_kernels(entry_calls, "entry", DEFAULT_PATH),
         compare_kernels(qentry_calls, "quant entry", QUANT_PATH),
+        compare_kernels(tentry_calls, "textured entry", TEX_PATH),
         compare_kernels(real_calls, "real-size", DEFAULT_PATH, timed=DEFAULT_PATH),
         compare_kernels(qreal_calls, "quant real-size", QUANT_PATH, timed=own),
+        compare_kernels(treal_calls, "textured real-size", TEX_PATH, timed=("tile_tap_resolve",)),
     ]
     # Each kernel's numbers come from the path that owns it: K7 / K8 from
-    # the quantised fly-through, the others from the default one.
-    timing = {**cmps[2], **{k: cmps[3][k] for k in own}}
-    launches = {**counts, **{k: qcounts[k] for k in own}}
+    # the quantised fly-through, K9 from the textured one, the others from
+    # the default one.
+    timing = {**cmps[3], **{k: cmps[4][k] for k in own},
+              "tile_tap_resolve": cmps[5]["tile_tap_resolve"]}
+    launches = {**counts, **{k: qcounts[k] for k in own},
+                "tile_tap_resolve": tcounts["tile_tap_resolve"]}
 
-    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "arctic_tpu"))
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "arctic_tpu", "PIL"))
     if foreign:
-        raise RuntimeError(f"the port imported JAX or the JAX package: {foreign}")
+        raise RuntimeError(f"the port imported JAX, the JAX package or Pillow: {foreign}")
 
     rows = []
     for fn in kernels.KERNELS:

@@ -36,6 +36,9 @@ def _jax_leaves(jb):
         "combined_shape": tuple(a.combined_shape),
         "quad_width": int(a.combined_quads.shape[-1]),
         "combined_env_rows": np.asarray(a.combined_env_rows).view(np.uint16),
+        "tiles": None,  # these scenes take the combined quad atlas
+        "tiles_ntex": None,
+        "tile_groups": None,
         "env_region": tuple(int(v) for v in np.asarray(e.atlas.regions)[0, 0]),
         "env_data_shape": tuple(e.atlas.data.shape[:2]),
         "env_num_rows": int(e.atlas.quads_packed.shape[0]),

@@ -153,14 +153,15 @@ def test_to_unorm8_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Every arctic_tpu_torch module imports without pulling in JAX or any
-    module of the JAX package (the card's machine has no JAX)."""
+    """Every arctic_tpu_torch module imports without pulling in JAX, any
+    module of the JAX package or Pillow (the card's machine has neither)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import arctic_tpu_torch\n"
         "for m in pkgutil.walk_packages(arctic_tpu_torch.__path__, 'arctic_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'arctic_tpu'))\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'arctic_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('arctic_tpu_torch')]))\n"
     )
