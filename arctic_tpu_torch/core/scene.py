@@ -110,10 +110,23 @@ class Geometry:
     num_tris: int
     tri_corner_pos: torch.Tensor  # (9, T) f32 object-space corners, row c*3+i
     tri_trs: torch.Tensor  # (16, T) f32 world TRS per triangle, row i*4+j
+    tri_static_attrs: torch.Tensor  # (33, T) f32 corner n/t/b/uv, row c*11+k
+    # (23, T) f32: atlas regions 12, mr consts 4, nm consts 3, combined
+    # region or tile block 4.
+    tri_matrow: torch.Tensor
     # Slot-major static half of the shade-row table: rows [0:33) corner
     # n/t/b/uv, [33:56) material row, dup'd to [primary; secondary] clip
-    # slots and zero-padded to the 512-aligned table height.
-    slot_static_rows: torch.Tensor  # (56, NT) f32
+    # slots and zero-padded to the 512-aligned table height. None selects
+    # the full-stack shade-row build (K10), which reads the two tri-major
+    # planes above every frame instead.
+    slot_static_rows: torch.Tensor | None  # (56, NT) f32
+
+    def __post_init__(self):
+        # build_buffers makes the tri-major planes views of the static rows:
+        # without the rows, copy them out so the rows' storage can go.
+        if self.slot_static_rows is None:
+            self.tri_static_attrs = self.tri_static_attrs.contiguous()
+            self.tri_matrow = self.tri_matrow.contiguous()
 
     @property
     def capacity(self) -> int:

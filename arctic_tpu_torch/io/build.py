@@ -476,11 +476,15 @@ def build_buffers(
     def f32(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
 
+    static_rows = f32(slot_static)
     geometry = Geometry(
         num_tris=num_tris,
         tri_corner_pos=f32(tri_corner_pos.reshape(-1, 9).T),
         tri_trs=f32(tri_trs),
-        slot_static_rows=f32(slot_static),
+        # The tri-major planes are the primary slots of the static rows.
+        tri_static_attrs=static_rows[0:33, :cap],
+        tri_matrow=static_rows[33:56, :cap],
+        slot_static_rows=static_rows,
     )
     if use_tiles:
         atlas = TextureAtlas(

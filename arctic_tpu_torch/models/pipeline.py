@@ -2,7 +2,9 @@
 (render_frame_stats, build_sun_cache, autotune_pair_caps; core/config.py).
 
 shadow pass (sun-cull rect, binning, K1 depth-only raster) -> shade-row
-table (K3) -> camera binning + K1 raster -> G-buffer resolve (K4) -> PCF
+table (K3; for a Geometry without slot_static_rows the full stack in plain
+torch and K10's transpose) -> camera binning + K1 raster -> G-buffer
+resolve (K4) -> PCF
 sun shadow -> texture + sky tap (K6 on the merged quad table, or K9 on the
 u16 tile atlas of reference-scale texture sets) -> Cook-Torrance PBR with
 point lights and ambient -> skybox composite -> f16 HDR round, tonemap,
@@ -149,9 +151,50 @@ def shade_row_planes(setup: raster.TriSetup, geom: Geometry, wc, lsp) -> torch.T
     return pf
 
 
+def shade_row_stack(setup: raster.TriSetup, geom: Geometry, wc, lsp) -> torch.Tensor:
+    """The (128, N) component-major shade-row stack of the full-stack build
+    (JAX pipeline.py:380-435), N = round_up(p + 1, 512), for a Geometry
+    without slot_static_rows: the lanes of K3's table (ops/raster_tiles K3),
+    computed in plain torch from the tri-major planes with K3's expressions
+    in K3's order, so the two tables are equal bit for bit. Slot s of the
+    [primary; secondary] clip slots is triangle s % T: tri-major planes are
+    broadcast over a (2, T) view of the slots instead of dup'd."""
+    p, t = setup.capacity, geom.capacity
+    if p != 2 * t:
+        raise RenderError("clip slots must be [primary; secondary] tri-major")
+    n_total = -(-(p + 1) // 512) * 512
+    dev = geom.tri_trs.device
+    stack = torch.zeros((128, n_total), dtype=torch.float32, device=dev)
+    live = stack[:, :p]
+
+    def slots(rows):  # (k, p) view of the live slots as (k, 2, T)
+        return rows.view(rows.shape[0], 2, t)
+
+    edges = torch.stack([c for e in setup.edges for c in e])  # (9, p) A,B,C per corner
+    scale = torch.stack([setup.inv_area2 / setup.w[c] for c in range(3)])
+    live[0:9] = edges * scale.repeat_interleave(3, dim=0)  # ebw [0:9)
+    sid = torch.arange(n_total, device=dev, dtype=torch.float32)
+    stack[9] = torch.where(sid < p, sid, -2.0)
+    sa = geom.tri_static_attrs
+    att = [torch.stack([*wc[k], *sa[11 * k : 11 * k + 11], *lsp[k]])[:, None] for k in range(3)]
+    for c in range(3):  # corner-c blends [16 + 24c, 33 + 24c)
+        cb = [setup.cb[c][k].reshape(1, 2, t) for k in range(3)]
+        lane = 16 + 24 * c
+        slots(live[lane : lane + 17])[:] = cb[0] * att[0] + cb[1] * att[1] + cb[2] * att[2]
+    slots(live[88:111])[:] = geom.tri_matrow[:, None]  # material row
+    live[112:121] = edges  # raw A,B,C x 3
+    live[121:124] = torch.stack(list(setup.zplane))
+    stack[124] = torch.where(sid < p, sid, 0.0)  # raster slot id
+    return stack
+
+
 def build_shade_rows(setup: raster.TriSetup, geom: Geometry, wc, lsp) -> torch.Tensor:
     """(N, 128) shade rows per clip slot: K3 blends, scales and writes the
-    table from the per-frame planes and the build-time static rows."""
+    table from the per-frame planes and the build-time static rows; without
+    slot_static_rows the full stack is built in plain torch and K10
+    transposes it (the JAX package's build for such a Geometry)."""
+    if geom.slot_static_rows is None:
+        return raster_tiles.transpose_pack_rows(shade_row_stack(setup, geom, wc, lsp))
     pf = shade_row_planes(setup, geom, wc, lsp)
     return raster_tiles.pack_shade_rows(pf, geom.slot_static_rows, setup.capacity)
 

@@ -1,9 +1,14 @@
 """Tiled rasterizer, shade-row build and G-buffer resolve — torch port of
-arctic_tpu/ops/raster_tiles.py around three CUDA kernels:
+arctic_tpu/ops/raster_tiles.py around five CUDA kernels:
 
 - K1 ``raster_tiles``    (csrc/raster_tiles.cu) for _raster_kernel, with
   _pack16_kernel + _phase_resolve_kernel folded into its row load;
 - K3 ``pack_shade_rows`` (csrc/pack_shade_rows.cu) for _pack_shade_rows_kernel;
+- K11 ``pack_shade_rows_tm`` (csrc/pack_shade_rows_tm.cu) for
+  _pack_shade_rows_tm_kernel: K3 with tri-major corner planes (no frame
+  calls it, as in the JAX package);
+- K10 ``transpose_pack_rows`` (csrc/transpose_pack_rows.cu) for
+  _transpose_pack_kernel: the full-stack shade-row build's transpose;
 - K4 ``select_interp``   (csrc/select_interp.cu) for _select_kernel.
 
 Each wrapper takes its plain torch version for CPU tensors and launches its
@@ -174,6 +179,70 @@ def pack_shade_rows(pf: torch.Tensor, st: torch.Tensor, p: int) -> torch.Tensor:
     out = torch.empty((n, 128), dtype=torch.float32, device=pf.device)
     kernels.launch("arctic_pack_shade_rows", pf, st, n, p, out)
     pack_shade_rows.launches += 1
+    return out
+
+
+def pack_shade_rows_tm_plain(pf: torch.Tensor, tri: torch.Tensor, st: torch.Tensor, p: int):
+    """Plain torch K11: K3 with the 18 wc / lsp planes read tri-major —
+    slot s takes triangle s % cap for s < 2 * cap and zeros beyond — then
+    K3's plain version on the (48, N) stack that gives."""
+    n, cap = pf.shape[1], tri.shape[1]
+    full = torch.zeros((48, n), dtype=torch.float32, device=pf.device)
+    full[:24] = pf
+    m = min(n, 2 * cap)
+    full[24:42, :m] = tri[:, torch.arange(m, device=pf.device) % cap]
+    return pack_shade_rows_plain(full, st, p)
+
+
+@kernels.kernel(
+    "pack_shade_rows_tm", "arctic_tpu_torch/csrc/pack_shade_rows_tm.cu",
+    "arctic_tpu/ops/raster_tiles.py:275 (_pack_shade_rows_tm_kernel)",
+    pack_shade_rows_tm_plain,
+)
+def pack_shade_rows_tm(pf: torch.Tensor, tri: torch.Tensor, st: torch.Tensor, p: int):
+    """K11: (24, N) slot-major planes (pf[0:24) of K3) + (18, cap) tri-major
+    world / light-space corner planes (wc[k][i] at 3k+i, lsp at 9+3k+i) +
+    (56, N) static rows -> (N, 128) table, equal to K3's on the dup'd stack.
+    Any p <= N is taken (the JAX package asserted p == 2 * cap + 1 while its
+    clip slots number 2 * cap, so its frame never reached this kernel)."""
+    if not pf.is_cuda:
+        return pack_shade_rows_tm_plain(pf, tri, st, p)
+    n = pf.shape[1]
+    kernels.check_cuda(pf, "pf", torch.float32, (24, n))
+    kernels.check_cuda(tri, "tri", torch.float32, (18, tri.shape[1]))
+    kernels.check_cuda(st, "st", torch.float32, (56, n))
+    if not 0 <= p <= n or tri.shape[1] < 1:
+        raise ValueError(f"p = {p} slots need 0 <= p <= N = {n} and a triangle plane")
+    out = torch.empty((n, 128), dtype=torch.float32, device=pf.device)
+    kernels.launch("arctic_pack_shade_rows_tm", pf, tri, st, n, tri.shape[1], p, out)
+    pack_shade_rows_tm.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K10: (128, N) component stack -> (N, 128) rows
+# --------------------------------------------------------------------------
+
+
+def transpose_pack_rows_plain(stacked: torch.Tensor) -> torch.Tensor:
+    """Plain torch K10 (also the one library call that computes it)."""
+    return stacked.t().contiguous()
+
+
+@kernels.kernel(
+    "transpose_pack_rows", "arctic_tpu_torch/csrc/transpose_pack_rows.cu",
+    "arctic_tpu/ops/raster_tiles.py:162 (_transpose_pack_kernel)",
+    transpose_pack_rows_plain,
+)
+def transpose_pack_rows(stacked: torch.Tensor) -> torch.Tensor:
+    """K10: (128, N) component-major stack -> (N, 128) row table."""
+    if not stacked.is_cuda:
+        return transpose_pack_rows_plain(stacked)
+    n = stacked.shape[1] if stacked.dim() == 2 else 0
+    kernels.check_cuda(stacked, "stacked", torch.float32, (128, n))
+    out = torch.empty((n, 128), dtype=torch.float32, device=stacked.device)
+    kernels.launch("arctic_transpose_pack_rows", stacked, n, out)
+    transpose_pack_rows.launches += 1
     return out
 
 

@@ -1,38 +1,46 @@
 """Shadow-map PCF — torch port of arctic_tpu/ops/shadow.py:pcf_shadow_proj,
-an exact reproduction of calculate_shadow (forward.hlsl:68-96), around two
+an exact reproduction of calculate_shadow (forward.hlsl:68-96), around four
 CUDA kernels:
 
+- K12 ``window_lut``  (csrc/window_lut.cu) for _lut_kernel: the wrap-padded
+  f32 shadow map;
 - K7 ``window_lut_q`` (csrc/window_lut_q.cu) for _lut_kernel_q / _lut_step_q:
   the wrap-padded, u16-quantised shadow map;
 - K8 ``pcf_eval``     (csrc/pcf_eval.cu) for _pcf_eval_kernel: the 4x4
-  window of each pixel of the compacted rows, dequantised, and its 25 taps.
+  window of each pixel of the listed rows, dequantised, and its 25 taps;
+- K13 ``pcf_resolve`` (csrc/pcf_resolve.cu) for _pcf_resolve_kernel: the
+  16 dequantised window texels of each pixel (K8 superseded it; no frame
+  calls it, as in the JAX package).
 
 Quirks kept: bias 0; 25 taps at fixed +-2 * 0.0001 UV offsets, each a
 bilinear fetch of the depth map through the linear-WRAP sampler (depth is
 filtered before the compare); points outside the light frustum are lit.
 All 25 taps read one 4x4 texel window per pixel, and every tap is evaluated
-with exact 3-way selects (``_tap_count``, shared by both paths).
+with exact 3-way selects (``_tap_count``, shared by every route).
 
-Two paths, as in the JAX package:
+Routes, as in the JAX package (``pcf_shadow_proj(use_lut=, quant=)``):
 
-- the exact f32 **runs** path (the default): the window is fetched straight
-  from the map with wrapped indices;
-- the **quantised** path, taken when ``row_cap`` is set: the map is
-  wrap-padded by 2 texels and quantised to u16
+- the exact f32 **runs** path (the frame's default): the window is fetched
+  straight from the map with wrapped indices;
+- the **f32 window table** (``use_lut=True, quant=False``): the map
+  wrap-padded by 2 texels (K12), each window read at its padded origin;
+  bit-identical to the runs path;
+- the **quantised** table (the frame's route when ``row_cap`` is set, and
+  only then): the padded map quantised to u16
   (``floor(clip(x * 65535 + 0.5, 0, 65535))``, dequantised as ``q * DQ``).
   A min/max pyramid of the same quantised map classifies each 128-pixel
-  row: rows provably fully lit or fully shadowed emit exact 0 / 1, and only
-  penumbra rows, compacted, run K8. The JAX package documents the
+  row: rows provably fully lit or fully shadowed emit exact 0 / 1, and
+  only penumbra rows, compacted, run K8. The JAX package documents the
   classification as bit-identical to evaluating every row, for every
-  consumed pixel.
+  consumed pixel (its uncompacted route; a test holds the two equal).
 
-The JAX package stored its table as 16x8-texel blocks at y-stride 12 and
-x-stride 4, two u16 per i32 lane, because a TPU gather costs by table size
-and row count (shadow.py:36-43). On the card a pixel reads its 16 texels
-from the padded map directly, so the table here is that map: (S + 4) rows
-of ``lut_pitch(S)`` u16. The values a window reads are the same.
+The JAX package stored its tables as 8x8 (f32) or 16x8-texel (u16) blocks,
+two per 128-lane row, built by one-hot matmuls, because a TPU gather costs
+by table size and row count (shadow.py:36-43). On the card a pixel reads its
+16 texels from the padded map directly, so each table here is that map:
+(S + 4) rows of ``window_pitch(S)`` f32 or ``lut_pitch(S)`` u16. The values
+a window reads are the same.
 """
-
 from __future__ import annotations
 
 import numpy as np
@@ -60,13 +68,81 @@ def lut_pitch(s: int) -> int:
     return _round_up(s + 4, 64)
 
 
+def window_pitch(s: int) -> int:
+    """Row pitch, in f32 texels, of the f32 window table of an (s, s) map:
+    the s + 4 padded columns rounded up to 32 (128-byte rows)."""
+    return _round_up(s + 4, 32)
+
+
 def _wrap_index(n: int, s: int, device) -> torch.Tensor:
     """Source index of each of the n padded coordinates (2-texel wrap pad)."""
     return (torch.arange(n, device=device) - 2) % s
 
 
+def _wrap_padded(src: torch.Tensor, s: int) -> torch.Tensor:
+    """The (s, s) top left of ``src``, wrap-padded by 2 texels a side."""
+    idx = _wrap_index(s + 4, s, src.device)
+    return src[:s, :s][idx][:, idx]
+
+
 def _quantise(x: torch.Tensor) -> torch.Tensor:
     return torch.floor(torch.clamp(x * 65535.0 + 0.5, 0.0, 65535.0)).to(torch.int32)
+
+
+def _dequantise(v: torch.Tensor) -> torch.Tensor:
+    """Texels of the u16 table, read as int16, to f32 (q * DQ)."""
+    return (v.to(torch.int32) & 0xFFFF).to(torch.float32) * DQ
+
+
+def _read_window(table: torch.Tensor, start_y, start_x, decode=None):
+    """The 4x4 window of each pixel in a padded window table (K12's f32
+    table, or K7's u16 table seen as int16 with ``decode=_dequantise``):
+    rows start_y .. start_y + 3, columns start_x .. start_x + 3, as 4
+    tuples of 4 texel planes of start_y's shape."""
+    pitch = table.shape[1]
+    flat = table.reshape(-1)
+    base = start_y.long() * pitch + start_x.long()
+
+    def texel(r, c):
+        v = flat[base + (r * pitch + c)]
+        return v if decode is None else decode(v)
+
+    return [tuple(texel(r, c) for c in range(4)) for r in range(4)]
+
+
+# --------------------------------------------------------------------------
+# K12: the f32 window table
+# --------------------------------------------------------------------------
+
+
+def window_lut_plain(src: torch.Tensor, s: int) -> torch.Tensor:
+    """Plain torch K12: the (s, s) map at the top left of ``src`` (any 2-D
+    f32 tensor, e.g. K1's padded depth buffer), wrap-padded by 2 texels, as
+    an (s + 4, window_pitch(s)) f32 table; columns past s + 4 hold 0."""
+    out = torch.zeros((s + 4, window_pitch(s)), dtype=torch.float32, device=src.device)
+    out[:, : s + 4] = _wrap_padded(src, s)
+    return out
+
+
+@kernels.kernel(
+    "window_lut", "arctic_tpu_torch/csrc/window_lut.cu",
+    "arctic_tpu/ops/shadow.py:74 (_lut_kernel)",
+    window_lut_plain,
+)
+def window_lut(src: torch.Tensor, s: int) -> torch.Tensor:
+    """K12: the wrap-padded f32 map of the (s, s) top left of ``src``, which
+    may be strided (its row pitch is passed to the kernel)."""
+    if not src.is_cuda:
+        return window_lut_plain(src, s)
+    if src.dim() != 2 or src.dtype != torch.float32 or src.stride(1) != 1:
+        raise ValueError("src: expected a 2-D f32 CUDA tensor with unit column stride")
+    if src.shape[0] < s or src.shape[1] < s or s < 2:
+        raise ValueError(f"src {tuple(src.shape)} does not hold an ({s}, {s}) map")
+    pitch = window_pitch(s)
+    out = torch.empty((s + 4, pitch), dtype=torch.float32, device=src.device)
+    kernels.launch("arctic_window_lut", src, src.stride(0), s, pitch, out)
+    window_lut.launches += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -81,8 +157,7 @@ def window_lut_q_plain(src: torch.Tensor, s: int, y_range: torch.Tensor) -> torc
     [y_range[0], y_range[1] + 3] and columns past s + 4 hold 0."""
     dev = src.device
     sp = s + 4
-    idx = _wrap_index(sp, s, dev)
-    q = _quantise(src[:s, :s][idx][:, idx])
+    q = _quantise(_wrap_padded(src, s))
     rows = torch.arange(sp, device=dev)[:, None]
     keep = (rows >= y_range[0]) & (rows <= y_range[1] + 3)
     out = torch.zeros((sp, lut_pitch(s)), dtype=torch.int32, device=dev)
@@ -161,9 +236,7 @@ def build_shadow_pyramid(shadow_map: torch.Tensor):
     32768 or more makes the i32 negative: decode with ``(v >> 16) & 0xFFFF``.
     Returns (table (N,) i32, meta)."""
     s = shadow_map.shape[0]
-    sp = s + 4
-    idx = _wrap_index(sp, s, shadow_map.device)
-    padded = shadow_map[idx][:, idx]
+    padded = _wrap_padded(shadow_map, s)
 
     def pool(a, k, op, fill):
         m = _round_up(a.shape[0], k)
@@ -309,15 +382,7 @@ def pcf_eval_plain(lut, order, rows_used, start_y, start_x, z, lx, ly, offsets):
     dev = lut.device
     pix = order.long()[:, None] * ROW + torch.arange(ROW, device=dev)
     sy, sx, zz, lxx, lyy = (a.reshape(-1)[pix] for a in (start_y, start_x, z, lx, ly))
-    flat = lut.view(torch.int16).reshape(-1)
-    base = sy.long() * lut.shape[1] + sx.long()
-    rows = [
-        tuple(
-            (flat[base + (r * lut.shape[1] + c)].to(torch.int32) & 0xFFFF).to(torch.float32) * DQ
-            for c in range(4)
-        )
-        for r in range(4)
-    ]
+    rows = _read_window(lut.view(torch.int16), sy, sx, _dequantise)
     count = _tap_count(rows, lxx, lyy, zz, offsets)
     live = torch.arange(order.shape[0], device=dev)[:, None] < rows_used
     return torch.where(live, count, 0.0)
@@ -361,6 +426,44 @@ def pcf_eval(lut, order, rows_used, start_y, start_x, z, lx, ly, offsets):
 
 
 # --------------------------------------------------------------------------
+# K13: the window resolve (no frame calls it: K8 superseded it, as in JAX)
+# --------------------------------------------------------------------------
+
+
+def pcf_resolve_plain(lut: torch.Tensor, start_y: torch.Tensor, start_x: torch.Tensor):
+    """Plain torch K13: the 16 dequantised texels of each pixel's 4x4 window
+    of the quantised table, as (16, P) f32 planes (plane 4r + c = window
+    row r, column c)."""
+    rows = _read_window(lut.view(torch.int16), start_y, start_x, _dequantise)
+    return torch.stack([texel for row in rows for texel in row])
+
+
+@kernels.kernel(
+    "pcf_resolve", "arctic_tpu_torch/csrc/pcf_resolve.cu",
+    "arctic_tpu/ops/shadow.py:617 (_pcf_resolve_kernel)",
+    pcf_resolve_plain,
+)
+def pcf_resolve(lut: torch.Tensor, start_y: torch.Tensor, start_x: torch.Tensor):
+    """K13: lut (S + 4, pitch) u16 window table (K7); start_y / start_x (P,)
+    i32 padded window origins, which the caller keeps in [0, S] (as
+    pcf_shadow_proj's clamp does; they are not checked, which would cost a
+    sync, and one outside reads past the table). Returns (16, P) f32
+    planes."""
+    if not lut.is_cuda:
+        return pcf_resolve_plain(lut, start_y, start_x)
+    kernels.check_cuda(lut, "lut", torch.uint16)
+    if lut.dim() != 2 or lut.shape[1] < lut.shape[0]:
+        raise ValueError(f"lut: expected an (S + 4, pitch) table, got {tuple(lut.shape)}")
+    n = start_y.shape[0] if start_y.dim() == 1 else -1
+    kernels.check_cuda(start_y, "start_y", torch.int32, (n,))
+    kernels.check_cuda(start_x, "start_x", torch.int32, (n,))
+    out = torch.empty((16, n), dtype=torch.float32, device=lut.device)
+    kernels.launch("arctic_pcf_resolve", lut, lut.shape[1], start_y, start_x, n, out)
+    pcf_resolve.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
 # pcf_shadow_proj
 # --------------------------------------------------------------------------
 
@@ -368,21 +471,32 @@ def pcf_eval(lut, order, rows_used, start_y, start_x, z, lx, ly, offsets):
 def pcf_shadow_proj(
     shadow_map: torch.Tensor, x, y, z, care=None, row_cap: int | None = None,
     with_rows: bool = False, lut=None, pyramid=None, lut_y_range=None,
+    use_lut: bool | None = None, quant: bool = True,
 ):
     """Fraction of occluded PCF taps in [0, 1] at light-space NDC planes
     (x, y, z) (the sun is orthographic: no divide). shadow_map: (S, S) f32
-    depth cleared to 1.0 (a strided view is read in place on the quantised
-    path).
+    depth cleared to 1.0 (a strided view is read in place by the table
+    builds).
 
-    The quantised path runs when ``row_cap`` is set: x, y, z (and
-    ``care``) are then viewed as rows of 128 pixels in memory order,
-    classified, and the penumbra rows compacted to effective_row_cap rows;
-    ``care`` marks consumed pixels (None = all), others get unspecified
-    finite values. ``with_rows`` also returns the penumbra row count as a
-    0-dim i32 device tensor (0 on the runs path; more than the cap means
-    some rows got another row's values: check_stats raises). ``lut`` /
-    ``pyramid`` inject a SunCache's products for this exact map (only with
-    ``row_cap``); ``lut_y_range`` is the in-frame table's start_y band."""
+    Routes, by the JAX package's arguments: ``use_lut`` (default: ``row_cap
+    is not None``) reads each window from a padded window table, ``quant``
+    makes that table the u16 one (K7). Without a table the window comes
+    straight from the map (the runs path); with the f32 table (K12) its 16
+    texels are read with no wrap arithmetic, giving the runs path's values
+    bit for bit. The u16 table runs exactly when ``row_cap`` is set (either
+    without the other raises): x, y, z (and ``care``) are viewed as rows of
+    128 pixels in memory order, classified, and the penumbra rows compacted
+    to effective_row_cap rows; ``care`` marks consumed pixels (None = all),
+    others get unspecified finite values. ``with_rows`` also returns the
+    penumbra row count as a 0-dim i32 device tensor (0 on the f32 routes;
+    more than the cap means some rows got another row's values: check_stats
+    raises). ``lut`` / ``pyramid`` inject a SunCache's products
+    for this exact map (only with ``row_cap``); ``lut_y_range`` is the
+    u16 table's start_y band."""
+    if use_lut is None:
+        use_lut = row_cap is not None
+    if (row_cap is not None) != (use_lut and quant):
+        raise ValueError("the quantised window table (use_lut=True, quant=True) runs exactly when row_cap is set")
     if row_cap is None and (lut is not None or pyramid is not None):
         raise ValueError("an injected window table or pyramid needs row_cap")
     s = shadow_map.shape[0]
@@ -406,13 +520,17 @@ def pcf_shadow_proj(
     offsets = tap_offsets(s)
 
     if row_cap is None:
-        # Runs path: the window straight from the map, wrapped by index.
-        flat = shadow_map.reshape(-1)
-        sy, sx = start_y.long(), start_x.long()
-        rows = []
-        for r in range(4):
-            ry = ((sy + (r - 2)) % s) * s
-            rows.append(tuple(flat[ry + (sx + (c - 2)) % s] for c in range(4)))
+        if use_lut:
+            # f32 window table (K12): the window at its padded origin.
+            rows = _read_window(window_lut(shadow_map, s), start_y, start_x)
+        else:
+            # Runs path: the window straight from the map, wrapped by index.
+            flat = shadow_map.reshape(-1)
+            sy, sx = start_y.long(), start_x.long()
+            rows = []
+            for r in range(4):
+                ry = ((sy + (r - 2)) % s) * s
+                rows.append(tuple(flat[ry + (sx + (c - 2)) % s] for c in range(4)))
         shadow = _tap_count(rows, lx, ly, z, offsets) / 25.0
         shadow = torch.where(outside, 0.0, shadow)
         zero = torch.zeros((), dtype=torch.int32, device=shadow.device)

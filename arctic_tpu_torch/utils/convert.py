@@ -58,7 +58,9 @@ def scene_buffers(jb, device="cpu") -> SceneBuffers:
         num_tris=int(np.asarray(g.num_tris)),
         tri_corner_pos=tensor(g.tri_corner_pos, device),
         tri_trs=tensor(g.tri_trs, device),
-        slot_static_rows=tensor(g.slot_static_rows, device),
+        tri_static_attrs=tensor(g.tri_static_attrs, device),
+        tri_matrow=tensor(g.tri_matrow, device),
+        slot_static_rows=None if g.slot_static_rows is None else tensor(g.slot_static_rows, device),
     )
     if a.tiles is not None:
         atlas = TextureAtlas(
@@ -179,7 +181,9 @@ def scene_leaves(b: SceneBuffers) -> dict:
         "num_tris": g.num_tris,
         "tri_corner_pos": to_numpy(g.tri_corner_pos),
         "tri_trs": to_numpy(g.tri_trs),
-        "slot_static_rows": to_numpy(g.slot_static_rows),
+        "tri_static_attrs": to_numpy(g.tri_static_attrs),
+        "tri_matrow": to_numpy(g.tri_matrow),
+        "slot_static_rows": arr(g.slot_static_rows),
         "combined_slots": a.combined_slots,
         "combined_shape": None if a.combined_shape is None else tuple(a.combined_shape),
         "quad_width": a.quad_width,

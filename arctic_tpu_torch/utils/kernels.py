@@ -50,6 +50,10 @@ _SIGNATURES = {
     "arctic_tile_tap_resolve": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
     "arctic_window_lut_q": (_P, _I, _I, _P, _I, _P, _P),
     "arctic_pcf_eval": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P),
+    "arctic_transpose_pack_rows": (_P, _I, _P, _P),
+    "arctic_pack_shade_rows_tm": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "arctic_window_lut": (_P, _I, _I, _I, _P, _P),
+    "arctic_pcf_resolve": (_P, _I, _P, _P, _I, _P, _P),
 }
 
 # Every registered kernel wrapper, in registration order.

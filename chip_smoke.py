@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-Three frame paths are driven: the default one (exact f32 PCF; kernels K1
+Four frame paths are driven: the default one (exact f32 PCF; kernels K1
 raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve), the
 quantised PCF path of RenderConfig.pcf_row_cap (the same four plus K7
-window_lut_q and K8 pcf_eval), with and without a sun cache, and the
-textured path of reference-scale texture sets (the u16 tile atlas: K1, K3,
-K4 and K9 tile_tap_resolve in place of K6). Phases, each of which raises on
-failure (exit code != 0):
+window_lut_q and K8 pcf_eval), with and without a sun cache, the textured
+path of reference-scale texture sets (the u16 tile atlas: K1, K3, K4 and K9
+tile_tap_resolve in place of K6), and the full-stack shade-row route of a
+Geometry without slot_static_rows (K10 transpose_pack_rows in place of K3).
+The f32 window-table PCF (shadow.pcf_shadow_proj(use_lut=True,
+quant=False), K12 window_lut) is driven on a real-size frame's planes. K11
+pack_shade_rows_tm and K13 pcf_resolve have no caller in the frame (as in
+the JAX package) and are held against K3 and K8. Phases, each of which
+raises on failure (exit code != 0):
 
 1. device check: refuses to run without CUDA (no CPU fallback); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -17,10 +22,13 @@ failure (exit code != 0):
    process per source;
 3. entry frames: Cornell at 256x192 with a 256^2 shadow map through the
    port's renderer on the card, on the default path, on the quantised
-   path with pcf_row_cap=384 (every row) and (3c) on the textured path
-   (the same scene forced onto the tile atlas, tile_threshold_texels=0).
-   Each path must launch each of its kernels (the textured path K9 and
-   never K6, the others K6 and never K9); each frame must be within 1 u8
+   path with pcf_row_cap=384 (every row), (3c) on the textured path
+   (the same scene forced onto the tile atlas, tile_threshold_texels=0)
+   and (3d) on the full-stack route (slot_static_rows=None; its frame must
+   also be within 1 LSB of the default entry frame on every pixel). Each
+   path must launch each of its kernels (the textured path K9 and never
+   K6, the others K6 and never K9; the full-stack route K10 and never K3,
+   the others K3 and never K10); each frame must be within 1 u8
    LSB of the port's CPU frame (plain torch versions) on < 1% of the
    pixels, with equal pair stats, and >= 40 dB PSNR against the f64 golden
    oracle (which samples the material images, not an atlas); check_stats
@@ -45,11 +53,25 @@ failure (exit code != 0):
    >= 40 dB (bench.py's min_db) over them (the whole-frame PSNR is printed:
    near-tied depths, which the TPU rounded its own way, flip whole surface
    patches at the column capitals);
+4e. the full-stack route at real size: the default scene and tuned caps
+   with the geometry's slot_static_rows set to None, the 5-frame
+   fly-through (K10 once a frame, K3 never), each frame within 1 LSB of the
+   default path's frame at the same viewpoint;
+4f. the f32 window-table PCF on the default real-size frame 0's shadow map
+   (K1's strided buffer) and light-space planes, as a render of that frame
+   handed them to its PCF: K12 launched, the result bit-equal to the
+   runs-path result that frame computed (4e and 4f run after 4d, so the
+   earlier paths see the same retained inputs as before them);
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded): bit-exact
    equality, CUDA-event times of kernel and plain version at the real-size
    shapes, and each kernel's bound on these inputs (bytes over 3.35 TB/s
-   or f32 operations over 67 TFLOP/s, whichever is larger).
+   or f32 operations over 67 TFLOP/s, whichever is larger); K10 and K12
+   also against the one library call that computes their function. K11
+   runs on the default frame's own K3 planes (split slot-major / tri-major)
+   and must equal K3's table; K13 on the quantised frame 0's K7 table and
+   listed penumbra rows, and _tap_count over its planes must equal K8's
+   counts.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Frames are saved under build/chip_smoke/ as
@@ -101,6 +123,9 @@ CAP_MARGIN = 1.4
 DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve")
 QUANT_PATH = DEFAULT_PATH + ("window_lut_q", "pcf_eval")
 TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve")
+FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve")
+# Kernels with no caller in any frame, as in the JAX package.
+NO_FRAME = ("pack_shade_rows_tm", "pcf_resolve")
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -113,9 +138,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def entry_scene(device, pcf_row_cap=None, textured=False):
+def entry_scene(device, pcf_row_cap=None, textured=False, full_stack=False):
     """The entry configuration; ``textured`` forces the scene onto the tile
-    atlas (tile_threshold_texels=0)."""
+    atlas (tile_threshold_texels=0), ``full_stack`` drops the geometry's
+    slot_static_rows (the full-stack shade-row route)."""
     from arctic_tpu_torch.core.config import RenderConfig
     from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
     from arctic_tpu_torch.io.build import build_buffers
@@ -126,9 +152,19 @@ def entry_scene(device, pcf_row_cap=None, textured=False):
     scene = cornell_like_scene()
     bufs = build_buffers(*scene, tri_bucket=256, device=device,
                          tile_threshold_texels=0 if textured else None)
+    if full_stack:
+        bufs = full_stack_buffers(bufs)
     params = default_scene_params(aspect=w / h)
     params.camera = make_camera(ENTRY["eye"], ENTRY["rot"], w / h)
     return config, scene, bufs, params, default_settings()
+
+
+def full_stack_buffers(bufs):
+    """The same scene buffers with a Geometry without slot_static_rows."""
+    import dataclasses
+
+    geom = dataclasses.replace(bufs.geometry, slot_static_rows=None)
+    return dataclasses.replace(bufs, geometry=geom)
 
 
 def golden_frame(scene, params, settings, config):
@@ -168,18 +204,21 @@ def check_launches(counts, path, label, absent=()):
         raise RuntimeError(f"{label}: kernels of another path launched: {stray} ({counts})")
 
 
-def run_entry(device, oracle, pcf_row_cap=None, textured=False):
+def run_entry(device, oracle, pcf_row_cap=None, textured=False, default_img=None):
     """Entry frame on ``device`` (the quantised path with ``pcf_row_cap``,
-    the tile atlas with ``textured``), held against the CPU frame and the
-    f64 ``oracle`` frame; returns (img, recorded kernel calls)."""
+    the tile atlas with ``textured``, the full-stack route with the default
+    path's frame ``default_img`` to hold it to), held against the CPU frame
+    and the f64 ``oracle`` frame; returns (img, recorded kernel calls)."""
     import numpy as np
     import torch
 
     from arctic_tpu_torch.models import golden, pipeline
     from arctic_tpu_torch.utils import kernels
 
-    label = "textured entry" if textured else "entry" if pcf_row_cap is None else "quant entry"
-    config, scene, bufs, params, settings = entry_scene(device, pcf_row_cap, textured)
+    full = default_img is not None
+    label = ("textured entry" if textured else "full-stack entry" if full
+             else "entry" if pcf_row_cap is None else "quant entry")
+    config, scene, bufs, params, settings = entry_scene(device, pcf_row_cap, textured, full)
     kernels.reset_launch_counts()
     with kernels.record_calls() as calls:
         img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
@@ -187,14 +226,16 @@ def run_entry(device, oracle, pcf_row_cap=None, textured=False):
     counts = kernels.launch_counts()
     log(f"{label} frame launches: {counts}")
     if textured:
-        check_launches(counts, TEX_PATH, label, absent=("tap_resolve",))
+        check_launches(counts, TEX_PATH, label, absent=("tap_resolve", "transpose_pack_rows"))
+    elif full:
+        check_launches(counts, FULL_PATH, label, absent=("pack_shade_rows", "tile_tap_resolve"))
     else:
         check_launches(counts, DEFAULT_PATH if pcf_row_cap is None else QUANT_PATH, label,
-                       absent=("tile_tap_resolve",))
+                       absent=("tile_tap_resolve", "transpose_pack_rows"))
     pipeline.check_stats(stats)
     img = img.cpu().numpy()
 
-    cpu_bufs = entry_scene("cpu", pcf_row_cap, textured)[2]
+    cpu_bufs = entry_scene("cpu", pcf_row_cap, textured, full)[2]
     img_cpu, stats_cpu = pipeline.render_frame_stats(cpu_bufs, params, settings, config)
     img_cpu = img_cpu.numpy()
     diff = np.abs(img.astype(np.int32) - img_cpu.astype(np.int32))
@@ -213,8 +254,15 @@ def run_entry(device, oracle, pcf_row_cap=None, textured=False):
     log(f"{label} frame PSNR vs f64 golden oracle: {db:.2f} dB")
     if db < 40.0:
         raise RuntimeError(f"{label} frame PSNR {db:.2f} dB < 40 dB")
+    if full:
+        d = np.abs(img.astype(np.int32) - default_img.astype(np.int32))
+        log(f"{label} frame vs the default entry frame: max {d.max()} LSB, "
+            f"{int((d.max(axis=2) > 0).sum())} pixels differ")
+        if d.max() > 1:
+            raise RuntimeError(f"{label} frame differs from the default entry frame by > 1 LSB")
     os.makedirs(OUT_DIR, exist_ok=True)
-    name = "entry_tex" if textured else "entry" if pcf_row_cap is None else "entry_quant"
+    name = ("entry_tex" if textured else "entry_full" if full
+            else "entry" if pcf_row_cap is None else "entry_quant")
     np.save(os.path.join(OUT_DIR, f"chip_smoke_{name}.npy"), img)
     return img, calls
 
@@ -284,12 +332,16 @@ def real_buffers(device, textured=False):
     t0 = time.perf_counter()
     scene = sponza_like_scene(texture_size=1024, n_materials=24) if textured else sponza_like_scene()
     t1 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
     bufs = build_buffers(*scene, device=device)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     label = "textured real-size" if textured else "real-size"
-    log(f"{label} scene: {bufs.geometry.num_tris} tris, capacity {bufs.geometry.capacity}; "
-        f"generated in {t1 - t0:.1f} s, built in {t2 - t1:.1f} s")
+    g = bufs.geometry
+    log(f"{label} scene: {g.num_tris} tris, capacity {g.capacity}; "
+        f"generated in {t1 - t0:.1f} s, built in {t2 - t1:.1f} s; "
+        f"{torch.cuda.memory_allocated() - before} B on the card, slot_static_rows "
+        f"{g.slot_static_rows.numel() * 4} B of it (tri_static_attrs and tri_matrow are views of it)")
     if textured:
         tiles = bufs.atlas.tiles
         if tiles is None:
@@ -449,7 +501,8 @@ def _mem(mem) -> str:
 def run_real(device, bufs, config, profile: bool = False):
     """Real-size fly-through on the default path, then frame 19 against
     bench_golden.png for the record; returns (summary dict, recorded
-    kernel calls, launch counts of the timed frames)."""
+    kernel calls, launch counts of the timed frames, the frames on the
+    host)."""
     import numpy as np
     import torch
 
@@ -466,7 +519,8 @@ def run_real(device, bufs, config, profile: bool = False):
 
     frames = [real_params(i) for i in range(FLY_FRAMES)]
     times, all_stats, imgs, counts, mem = fly_through(
-        render, bufs, frames, DEFAULT_PATH, "real-size", absent=("tile_tap_resolve",)
+        render, bufs, frames, DEFAULT_PATH, "real-size",
+        absent=("tile_tap_resolve", "transpose_pack_rows"),
     )
     s = {k: int(v) for k, v in all_stats[-1].items()}
     if profile:
@@ -487,7 +541,99 @@ def run_real(device, bufs, config, profile: bool = False):
     log(f"real-size frame 19 vs bench_golden.png (for the record: that golden went "
         f"through bench.py's glTF round trip): {g['db']:.2f} dB whole frame; "
         f"{g['near']:.4%} of pixels within {GOLDEN_NEAR_LSB} LSB, {g['near_db']:.2f} dB over them")
+    return summary, calls, counts, imgs
+
+
+def run_full_stack(device, bufs, config, default_imgs, profile: bool = False):
+    """The full-stack shade-row route at real size: the default scene and
+    config with the geometry's slot_static_rows dropped, the fly-through
+    (K10 once a frame, K3 never), each frame within 1 LSB of the default
+    path's frame at the same viewpoint. Returns (summary, recorded calls of
+    the warm-up frame, launch counts of the fly-through)."""
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    before = torch.cuda.memory_allocated()
+    full = full_stack_buffers(bufs)
+    log(f"full-stack geometry: tri-major planes copied out of slot_static_rows, "
+        f"{torch.cuda.memory_allocated() - before} B on the card")
+    render = pipeline.make_renderer_stats(config, device)
+    params, settings = real_params(0)
+    with kernels.record_calls() as calls:  # warm-up frame; its inputs feed phase 5
+        img, stats = render(full, params, settings)
+        torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+
+    frames = [real_params(i) for i in range(FLY_FRAMES)]
+    times, all_stats, imgs, counts, mem = fly_through(
+        render, full, frames, FULL_PATH, "full-stack real-size",
+        absent=("pack_shade_rows", "tile_tap_resolve"),
+    )
+    if counts["transpose_pack_rows"] != len(frames):
+        raise RuntimeError(f"K10 launched {counts['transpose_pack_rows']} times in "
+                           f"{len(frames)} frames")
+    if profile:
+        profile_frames(render, full, frames[:2], "full_stack")
+    diffs = []
+    for im, ref in zip(imgs, default_imgs):
+        d = np.abs(im.astype(np.int32) - ref.astype(np.int32))
+        diffs.append((int(d.max()), int((d.max(axis=2) > 0).sum())))
+    log(f"full-stack vs default real-size frames: (max LSB, pixels that differ) {diffs}")
+    if max(m for m, _ in diffs) > 1:
+        raise RuntimeError("a full-stack frame differs from the default path's by more than 1 LSB")
+    summary = dict(ms_per_frame_median=statistics.median(times), ms_per_frame=times,
+                   max_memory_allocated=mem[0], diffs=diffs,
+                   stats={k: int(v) for k, v in all_stats[-1].items()})
+    log(f"full-stack real-size frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
+        f"(all {['%.3f' % t for t in times]}), {_mem(mem)}, stats {summary['stats']}")
     return summary, calls, counts
+
+
+def run_f32_table_pcf(device, bufs, config):
+    """The f32 window-table PCF (shadow.pcf_shadow_proj(use_lut=True,
+    quant=False), K12) on the default real-size frame 0's shadow map (K1's
+    depth-only output, a strided view of the row-major buffer) and
+    light-space planes, as that frame's PCF got them. The result must equal
+    the runs-path result the frame computed, bit for bit. Returns (K12's
+    recorded calls, launch counts of the call)."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.ops import shadow
+    from arctic_tpu_torch.utils import kernels
+
+    pcf = {}
+    frame_pcf = pipeline.pcf_shadow
+
+    def keep_pcf(gbuf, covered, shadow_map, *rest):
+        out = frame_pcf(gbuf, covered, shadow_map, *rest)
+        pcf.update(xyz=gbuf[14:17].clone(), shadow_map=shadow_map, shadow=out[0])
+        return out
+
+    pipeline.pcf_shadow = keep_pcf
+    try:
+        _, stats = pipeline.make_renderer_stats(config, device)(bufs, *real_params(0))
+    finally:
+        pipeline.pcf_shadow = frame_pcf
+    pipeline.check_stats(stats)
+    smap, (x, y, z) = pcf["shadow_map"], pcf["xyz"]
+    kernels.reset_launch_counts()
+    with kernels.record_calls() as calls:
+        got = shadow.pcf_shadow_proj(smap, x, y, z, use_lut=True, quant=False)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"f32 window-table PCF launches: {counts}")
+    check_launches(counts, ("window_lut",), "f32 window-table PCF",
+                   absent=("window_lut_q", "pcf_eval"))
+    if not torch.equal(got, pcf["shadow"]):
+        raise RuntimeError("the f32 window-table PCF differs from the frame's runs path at real size")
+    log(f"f32 window-table PCF at real size (map {smap.shape[0]}^2 read from K1's buffer, row "
+        f"pitch {smap.stride(0)}): bit-equal to the frame's runs-path result over {got.numel()} "
+        f"pixels, mean shadow {float(got.mean()):.6f}")
+    return calls, counts
 
 
 def run_real_quant(device, bufs, config, profile: bool = False):
@@ -525,7 +671,8 @@ def run_real_quant(device, bufs, config, profile: bool = False):
 
     frames = [real_params(i) for i in range(FLY_FRAMES)]
     times, all_stats, imgs, counts, mem = fly_through(
-        render, bufs, frames, QUANT_PATH, "quant real-size", absent=("tile_tap_resolve",)
+        render, bufs, frames, QUANT_PATH, "quant real-size",
+        absent=("tile_tap_resolve", "transpose_pack_rows"),
     )
     if profile:
         profile_frames(render, bufs, frames[:2], "quant")
@@ -562,7 +709,7 @@ def run_cached(device, bufs, config, uncached, profile: bool = False):
         raise RuntimeError("the sun cache's shadow pass overflowed its pair buffer")
     times, all_stats, imgs, _, mem = fly_through(
         render, bufs, frames, DEFAULT_PATH + ("pcf_eval",), "cached real-size", cache,
-        absent=("tile_tap_resolve", "window_lut_q"),
+        absent=("tile_tap_resolve", "window_lut_q", "transpose_pack_rows"),
     )
     if profile:
         profile_frames(render, bufs, frames[:2], "cached", cache)
@@ -604,7 +751,8 @@ def run_textured(device, profile: bool = False):
 
     frames = [real_params(i) for i in range(FLY_FRAMES)]
     times, all_stats, imgs, counts, mem = fly_through(
-        render, bufs, frames, TEX_PATH, "textured real-size", absent=("tap_resolve",)
+        render, bufs, frames, TEX_PATH, "textured real-size",
+        absent=("tap_resolve", "transpose_pack_rows"),
     )
     if counts["tile_tap_resolve"] != len(frames):
         raise RuntimeError(f"K9 launched {counts['tile_tap_resolve']} times in {len(frames)} frames")
@@ -789,6 +937,24 @@ def work(name, args, kw):
         texels = _distinct(base[:, None] + win, lut.numel())
         # dequantise 16, 5 x (add, floor, sub), 25 x (3 + 9 lerp + 2)
         return 4 * (n + 1) + 20 * pix.numel() + 2 * texels + 4 * 128 * n, 381 * pix.numel()
+    if name == "transpose_pack_rows":
+        (stacked,) = args
+        return 2 * 4 * stacked.numel(), 0
+    if name == "pack_shade_rows_tm":
+        pf, tri, st, p = args
+        return 4 * (pf.shape[1] * (24 + 56 + 128) + tri.numel()), 264 * p
+    if name == "window_lut":
+        src, s = args
+        return 4 * s * s + 4 * (s + 4) * shadow.window_pitch(s), 0
+    if name == "pcf_resolve":
+        lut, start_y, start_x = args
+        n = start_y.numel()
+        base = start_y.long() * lut.shape[1] + start_x.long()
+        win = torch.tensor([r * lut.shape[1] + c for r in range(4) for c in range(4)],
+                           device=base.device)
+        texels = _distinct(base[:, None] + win, lut.numel())
+        # 8 B of origins in, 16 f32 planes out; one dequantising multiply a texel
+        return 8 * n + 2 * texels + 4 * 16 * n, 16 * n
     raise KeyError(name)
 
 
@@ -842,6 +1008,84 @@ def compare_kernels(calls, label: str, names, timed=()):
     return result
 
 
+def k11_calls(real_calls):
+    """K11 on the default real-size frame 0's own K3 inputs: K3's planes
+    0:24 as the slot-major rows, its rows 24:42 over the first cap slots as
+    the tri-major wc / lsp planes, the static rows, and p = 2 * cap (the
+    port's clip-slot count). K11's table must equal K3's from the same
+    call. Returns K11's calls for phase 5."""
+    import torch
+
+    from arctic_tpu_torch.ops import raster_tiles
+
+    (pf, st, p), kw = real_calls["pack_shade_rows"][0]
+    cap = p // 2
+    args = (pf[:24].contiguous(), pf[24:42, :cap].contiguous(), st, p)
+    got = raster_tiles.pack_shade_rows_tm(*args)
+    want = raster_tiles.pack_shade_rows(pf, st, p, **kw)
+    torch.cuda.synchronize()
+    d = max_abs_diff(got, want)
+    log(f"K11 on the default real-size frame 0's K3 planes (p = 2 * cap = {p}, N = "
+        f"{pf.shape[1]}): table vs K3's table, max abs diff {d}")
+    if d != 0.0:
+        raise RuntimeError(f"K11's table differs from K3's on the same frame (max {d})")
+    return {"pack_shade_rows_tm": [(args, {})]}
+
+
+def k13_calls(qreal_calls):
+    """K13 on the quantised real-size frame 0's K7 table and the pixels of
+    its listed penumbra rows (K8's inputs): _tap_count over K13's 16 planes
+    must equal K8's counts for those rows. Returns K13's calls for phase 5."""
+    import torch
+
+    from arctic_tpu_torch.ops import shadow
+
+    (args, kw), = qreal_calls["pcf_eval"]
+    lut, order, rows_used, start_y, start_x, z, lx, ly, offsets = args
+    n_used = min(int(rows_used[0]), order.shape[0])
+    live = order[:n_used].long()
+    pix = (live[:, None] * shadow.ROW + torch.arange(shadow.ROW, device=live.device)).reshape(-1)
+    sy, sx, zz, lxx, lyy = (a.reshape(-1)[pix].contiguous() for a in (start_y, start_x, z, lx, ly))
+    planes = shadow.pcf_resolve(lut, sy, sx)
+    rows = [tuple(planes[4 * r + c] for c in range(4)) for r in range(4)]
+    count = shadow._tap_count(rows, lxx, lyy, zz, offsets)
+    k8 = shadow.pcf_eval(*args, **kw)[:n_used].reshape(-1)
+    torch.cuda.synchronize()
+    d = max_abs_diff(count, k8)
+    log(f"K13 on the quant real-size frame 0's {n_used} penumbra rows ({pix.numel()} pixels): "
+        f"_tap_count over its planes vs K8's counts, max abs diff {d}")
+    if d != 0.0:
+        raise RuntimeError(f"_tap_count over K13's planes differs from K8's counts (max {d})")
+    return {"pcf_resolve": [((lut, sy, sx), {})]}
+
+
+def library_times(full_calls, lut_calls) -> dict:
+    """CUDA-event ms of the one PyTorch call that computes each of K10's and
+    K12's functions on the same inputs (timed here, used nowhere in the
+    port): ``.t().contiguous()`` and the circular ``F.pad``; the padded map
+    must equal K12's table without its pitch."""
+    import torch
+    import torch.nn.functional as F
+
+    from arctic_tpu_torch.ops import shadow
+
+    (stacked,), _ = full_calls["transpose_pack_rows"][0]
+    (src, s), _ = lut_calls["window_lut"][0]
+
+    def pad():
+        return F.pad(src[None, None], (2, 2, 2, 2), mode="circular")[0, 0]
+
+    if not torch.equal(pad(), shadow.window_lut(src, s)[:, : s + 4]):
+        raise RuntimeError("the circular F.pad differs from K12's table")
+    out = {
+        "transpose_pack_rows": cuda_ms(lambda: stacked.t().contiguous(), 20),
+        "window_lut": cuda_ms(pad, 20),
+    }
+    log(f"library calls: .t().contiguous() {out['transpose_pack_rows']:.4f} ms, circular "
+        f"F.pad {out['window_lut']:.4f} ms")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -872,36 +1116,61 @@ def main() -> int:
     t0 = time.perf_counter()
     oracle = golden_frame(scene, params, settings, config)
     log(f"entry f64 golden oracle frame: {time.perf_counter() - t0:.1f} s")
-    _, entry_calls = run_entry(dev, oracle)
+    entry_img, entry_calls = run_entry(dev, oracle)
     _, qentry_calls = run_entry(dev, oracle, pcf_row_cap=ENTRY_ROWS)
     _, tentry_calls = run_entry(dev, oracle, textured=True)
+    _, fentry_calls = run_entry(dev, oracle, default_img=entry_img)
     bufs = real_buffers(dev)
     base = tune_caps(bufs, "real-size")
     profile = "--profile" in sys.argv[1:]
-    summary, real_calls, counts = run_real(dev, bufs, base, profile)
+    # The paths of earlier slices first, in their order, so that each sees
+    # the same retained inputs as before; then the full-stack route and 4f.
+    summary, real_calls, counts, real_imgs = run_real(dev, bufs, base, profile)
     qsummary, qreal_calls, qcounts, uncached, qconfig = run_real_quant(dev, bufs, base, profile)
     csummary = run_cached(dev, bufs, qconfig, uncached, profile)
     tsummary, treal_calls, tcounts = run_textured(dev, profile)
+    fsummary, freal_calls, fcounts = run_full_stack(dev, bufs, base, real_imgs, profile)
+    del real_imgs
+    lut_calls, lcounts = run_f32_table_pcf(dev, bufs, base)
     log(f"real-size ms/frame medians (one call, one card): default "
-        f"{summary['ms_per_frame_median']:.3f}, quant {qsummary['ms_per_frame_median']:.3f}, "
+        f"{summary['ms_per_frame_median']:.3f}, full-stack {fsummary['ms_per_frame_median']:.3f}, "
+        f"quant {qsummary['ms_per_frame_median']:.3f}, "
         f"cached sun {csummary['ms_per_frame_median']:.3f}, "
         f"textured {tsummary['ms_per_frame_median']:.3f}")
     own = ("window_lut_q", "pcf_eval")
-    cmps = [
+    entry_cmps = [
         compare_kernels(entry_calls, "entry", DEFAULT_PATH),
         compare_kernels(qentry_calls, "quant entry", QUANT_PATH),
         compare_kernels(tentry_calls, "textured entry", TEX_PATH),
-        compare_kernels(real_calls, "real-size", DEFAULT_PATH, timed=DEFAULT_PATH),
-        compare_kernels(qreal_calls, "quant real-size", QUANT_PATH, timed=own),
-        compare_kernels(treal_calls, "textured real-size", TEX_PATH, timed=("tile_tap_resolve",)),
+        compare_kernels(fentry_calls, "full-stack entry", FULL_PATH),
     ]
+    quant = compare_kernels(qreal_calls, "quant real-size", QUANT_PATH, timed=own)
+    tex = compare_kernels(treal_calls, "textured real-size", TEX_PATH, timed=("tile_tap_resolve",))
+    full = compare_kernels(freal_calls, "full-stack real-size", FULL_PATH,
+                           timed=("transpose_pack_rows",))
     # Each kernel's numbers come from the path that owns it: K7 / K8 from
-    # the quantised fly-through, K9 from the textured one, the others from
-    # the default one.
-    timing = {**cmps[3], **{k: cmps[4][k] for k in own},
-              "tile_tap_resolve": cmps[5]["tile_tap_resolve"]}
+    # the quantised fly-through, K9 from the textured one, K10 from the
+    # full-stack one, K12 from the f32 window-table PCF, K11 and K13 from
+    # their checks against K3 and K8; the others from the default path.
+    timing = {
+        **compare_kernels(real_calls, "real-size", DEFAULT_PATH, timed=DEFAULT_PATH),
+        **{k: quant[k] for k in own},
+        "tile_tap_resolve": tex["tile_tap_resolve"],
+        "transpose_pack_rows": full["transpose_pack_rows"],
+        **compare_kernels(lut_calls, "f32 window-table PCF", ("window_lut",), timed=("window_lut",)),
+        **compare_kernels(k11_calls(real_calls), "K11 on K3's frame planes",
+                          ("pack_shade_rows_tm",), timed=("pack_shade_rows_tm",)),
+        **compare_kernels(k13_calls(qreal_calls), "K13 on K8's penumbra rows", ("pcf_resolve",),
+                          timed=("pcf_resolve",)),
+    }
+    cmps = entry_cmps + [quant, tex, full, timing]
+    library = library_times(freal_calls, lut_calls)
     launches = {**counts, **{k: qcounts[k] for k in own},
-                "tile_tap_resolve": tcounts["tile_tap_resolve"]}
+                "tile_tap_resolve": tcounts["tile_tap_resolve"],
+                "transpose_pack_rows": fcounts["transpose_pack_rows"],
+                "window_lut": lcounts["window_lut"], **{k: 0 for k in NO_FRAME}}
+    log(f"K11 pack_shade_rows_tm and K13 pcf_resolve: 0 frame launches (no frame calls them, "
+        f"as in the JAX package); their rows in the kernels line come from their checks")
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "arctic_tpu", "PIL"))
@@ -917,7 +1186,7 @@ def main() -> int:
             launches=launches[name],
             max_abs_err=max(c[name]["max_abs_err"] for c in cmps if name in c),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None,
+            bound_by=t["bound_by"], library_ms=library.get(name),
         ))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

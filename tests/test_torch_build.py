@@ -31,6 +31,8 @@ def _jax_leaves(jb):
         "num_tris": int(g.num_tris),
         "tri_corner_pos": np.asarray(g.tri_corner_pos),
         "tri_trs": np.asarray(g.tri_trs),
+        "tri_static_attrs": np.asarray(g.tri_static_attrs),
+        "tri_matrow": np.asarray(g.tri_matrow),
         "slot_static_rows": np.asarray(g.slot_static_rows),
         "combined_slots": tuple(a.combined_slots),
         "combined_shape": tuple(a.combined_shape),
@@ -73,6 +75,33 @@ def test_build_matches_jax_leaf_by_leaf(built):
 def test_convert_carries_jax_buffers_bit_for_bit(built):
     jb, tb = built
     _assert_leaves_equal(convert.scene_leaves(convert.scene_buffers(jb)), convert.scene_leaves(tb))
+
+
+def test_convert_carries_a_full_stack_geometry(built):
+    """A JAX Geometry without slot_static_rows (the full-stack shade-row
+    route) arrives without them, its tri-major planes intact."""
+    jb, tb = built
+    jfull = dataclasses.replace(jb, geometry=dataclasses.replace(jb.geometry, slot_static_rows=None))
+    leaves = convert.scene_leaves(convert.scene_buffers(jfull))
+    assert leaves["slot_static_rows"] is None
+    for k in ("tri_static_attrs", "tri_matrow"):
+        np.testing.assert_array_equal(leaves[k], convert.scene_leaves(tb)[k], err_msg=k)
+
+
+def test_tri_major_planes_cost_no_device_bytes(built):
+    """The built planes are views of the static rows' primary slots, so the
+    routes that keep the rows pay nothing for them; a Geometry without the
+    rows holds copies, which leave the rows' storage free to go."""
+    tb = built[1]
+    g = tb.geometry
+    rows = g.slot_static_rows
+    for plane, lanes in ((g.tri_static_attrs, slice(0, 33)), (g.tri_matrow, slice(33, 56))):
+        assert plane.untyped_storage().data_ptr() == rows.untyped_storage().data_ptr()
+        assert torch.equal(plane, rows[lanes, : g.capacity])
+    full = dataclasses.replace(g, slot_static_rows=None)
+    for plane, kept in ((full.tri_static_attrs, g.tri_static_attrs), (full.tri_matrow, g.tri_matrow)):
+        assert plane.is_contiguous() and torch.equal(plane, kept)
+        assert plane.untyped_storage().data_ptr() != rows.untyped_storage().data_ptr()
 
 
 def test_convert_params_and_settings():

@@ -1,7 +1,9 @@
-"""arctic_tpu_torch on the card: the seven CUDA kernels against their
+"""arctic_tpu_torch on the card: the eleven CUDA kernels against their
 plain torch versions, and the entry frame, on the default path, on the
-quantised PCF path (pcf_row_cap) and on the textured path (the tile atlas,
-forced with tile_threshold_texels=0), against the CPU frame.
+quantised PCF path (pcf_row_cap), on the textured path (the tile atlas,
+forced with tile_threshold_texels=0) and on the full-stack shade-row route
+(a Geometry without slot_static_rows: K10 in place of K3), against the CPU
+frame.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on a machine with the card and no JAX:
@@ -13,8 +15,11 @@ are built with -fmad=false and must equal their plain versions exactly
 (NaN positions included: dead clip slots hold 0/0 planes, and K9's env
 channels of a covered pixel are a tile row's bits seen as f32); the frame must
 be within 1 u8 LSB of the CPU frame on < 1% of the pixels (different libm
-for sin/atan2/pow between the CPU and the card).
+for sin/atan2/pow between the CPU and the card); the full-stack frame is
+within 1 LSB of the default frame on every pixel (its table equals K3's).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -34,6 +39,7 @@ W, H, SHADOW = 256, 192, 256
 DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve")
 QUANT_PATH = DEFAULT_PATH + ("window_lut_q", "pcf_eval")
 TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve")
+FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve")
 ROWS = (W // 64) * (H // 64) * 32  # every 128-pixel row of the frame
 
 
@@ -44,10 +50,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _entry(device, pcf_row_cap=None, textured=False):
+def _entry(device, pcf_row_cap=None, textured=False, full_stack=False):
     config = RenderConfig(width=W, height=H, shadow_size=SHADOW, pcf_row_cap=pcf_row_cap)
     bufs = build_buffers(*cornell_like_scene(), tri_bucket=256, device=device,
                          tile_threshold_texels=0 if textured else None)
+    if full_stack:
+        geom = dataclasses.replace(bufs.geometry, slot_static_rows=None)
+        bufs = dataclasses.replace(bufs, geometry=geom)
     params = default_scene_params(aspect=W / H)
     params.camera = make_camera([0.0, 4.0, 3.0], [-25.0, -90.0], W / H)
     return config, bufs, params, default_settings()
@@ -60,14 +69,16 @@ def _same(a, b):
     return torch.equal(nan_a, nan_b) and torch.equal(a[~nan_a], b[~nan_b])
 
 
-def _run(device, pcf_row_cap=None, textured=False):
-    config, bufs, params, settings = _entry(device, pcf_row_cap, textured)
+def _run(device, pcf_row_cap=None, textured=False, full_stack=False):
+    config, bufs, params, settings = _entry(device, pcf_row_cap, textured, full_stack)
     kernels.reset_launch_counts()
     with kernels.record_calls() as calls:
         img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    cpu_img, cpu_stats = pipeline.render_frame_stats(*_entry("cpu", pcf_row_cap, textured)[1:], config)
+    cpu_img, cpu_stats = pipeline.render_frame_stats(
+        *_entry("cpu", pcf_row_cap, textured, full_stack)[1:], config
+    )
     return dict(img=img, stats=stats, counts=counts, calls=calls, cpu=(cpu_img, cpu_stats))
 
 
@@ -86,19 +97,33 @@ def tex_run(cuda):
     return _run(cuda, textured=True)
 
 
-def test_every_kernel_launches(entry_run, quant_run, tex_run):
+@pytest.fixture(scope="module")
+def full_run(cuda):
+    return _run(cuda, full_stack=True)
+
+
+def test_every_kernel_launches(entry_run, quant_run, tex_run, full_run):
     """Each path launches each of its kernels; the default path none of the
-    quantised path's own; K6 and K9 never on the same path."""
-    for run, path in ((entry_run, DEFAULT_PATH), (quant_run, QUANT_PATH), (tex_run, TEX_PATH)):
+    quantised path's own; K6 and K9 never on the same path; K10 only on the
+    full-stack route, in place of K3; no frame launches K11, K12 or K13."""
+    runs = ((entry_run, DEFAULT_PATH), (quant_run, QUANT_PATH), (tex_run, TEX_PATH),
+            (full_run, FULL_PATH))
+    for run, path in runs:
         assert min(run["counts"][k] for k in path) >= 1, run["counts"]
+        for name in ("pack_shade_rows_tm", "window_lut", "pcf_resolve"):
+            assert run["counts"][name] == 0, run["counts"]
     assert entry_run["counts"]["window_lut_q"] == entry_run["counts"]["pcf_eval"] == 0
     assert entry_run["counts"]["tile_tap_resolve"] == quant_run["counts"]["tile_tap_resolve"] == 0
     assert tex_run["counts"]["tap_resolve"] == 0 and tex_run["counts"]["tile_tap_resolve"] == 1
+    assert full_run["counts"]["transpose_pack_rows"] == 1 and full_run["counts"]["pack_shade_rows"] == 0
+    for run in (entry_run, quant_run, tex_run):
+        assert run["counts"]["transpose_pack_rows"] == 0
 
 
-@pytest.mark.parametrize("path", ["default", "quant", "textured"])
-def test_entry_frame_matches_cpu(entry_run, quant_run, tex_run, path):
-    run = {"default": entry_run, "quant": quant_run, "textured": tex_run}[path]
+@pytest.mark.parametrize("path", ["default", "quant", "textured", "full_stack"])
+def test_entry_frame_matches_cpu(entry_run, quant_run, tex_run, full_run, path):
+    run = {"default": entry_run, "quant": quant_run, "textured": tex_run,
+           "full_stack": full_run}[path]
     cpu_img, cpu_stats = run["cpu"]
     d = (run["img"].cpu().to(torch.int32) - cpu_img.to(torch.int32)).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
@@ -107,9 +132,15 @@ def test_entry_frame_matches_cpu(entry_run, quant_run, tex_run, path):
     }
 
 
-@pytest.mark.parametrize("name", QUANT_PATH + ("tile_tap_resolve",))
-def test_kernel_equals_plain_on_frame_inputs(entry_run, quant_run, tex_run, name):
-    run = entry_run if name in DEFAULT_PATH else tex_run if name in TEX_PATH else quant_run
+def test_full_stack_frame_matches_default_frame(entry_run, full_run):
+    d = (full_run["img"].to(torch.int32) - entry_run["img"].to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+
+
+@pytest.mark.parametrize("name", QUANT_PATH + ("tile_tap_resolve", "transpose_pack_rows"))
+def test_kernel_equals_plain_on_frame_inputs(entry_run, quant_run, tex_run, full_run, name):
+    run = (entry_run if name in DEFAULT_PATH else tex_run if name in TEX_PATH
+           else full_run if name in FULL_PATH else quant_run)
     fn = next(k for k in kernels.KERNELS if k.kernel_name == name)
     for args, kw in run["calls"][name]:
         got, want = fn(*args, **kw), fn.plain(*args, **kw)
@@ -189,3 +220,73 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
     bad_table[0] = args[0][:, :64].contiguous()
     with pytest.raises(ValueError, match="shape"):
         sampling.tile_tap_resolve(*bad_table)
+
+
+def _random_case(name, device):
+    """Inputs from numpy for one of K10-K13 (ragged sizes: N not a multiple
+    of the tiles, a strided map)."""
+    rng = np.random.default_rng(11)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+    s = 61
+    if name == "transpose_pack_rows":
+        return raster_tiles.transpose_pack_rows, (f32(128, 1000),)
+    if name == "pack_shade_rows_tm":
+        return raster_tiles.pack_shade_rows_tm, (f32(24, 1100), f32(18, 500), f32(56, 1100), 1001)
+    big = torch.from_numpy(rng.uniform(0.0, 1.0, (s + 7, s + 40)).astype(np.float32)).to(device)
+    if name == "window_lut":
+        return shadow.window_lut, (big[:s, :s], s)
+    lut = shadow.window_lut_q_plain(big.cpu(), s, torch.tensor([0, s], dtype=torch.int32)).to(device)
+    origin = [torch.from_numpy(rng.integers(0, s + 1, 3000).astype(np.int32)).to(device) for _ in range(2)]
+    return shadow.pcf_resolve, (lut, *origin)
+
+
+@pytest.mark.parametrize("name", ["transpose_pack_rows", "pack_shade_rows_tm", "window_lut",
+                                  "pcf_resolve"])
+def test_new_kernels_equal_plain_on_random_inputs(cuda, name):
+    """K10-K13 against their plain versions on the card and on the CPU, bit
+    for bit, and their launch counters."""
+    fn, args = _random_case(name, cuda)
+    kernels.reset_launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == 1
+    want = fn.plain(*args)
+    cpu = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    assert fn.launches == 1  # the plain versions launch nothing
+    assert _same(got, want) and _same(got.cpu(), cpu)
+
+
+def test_new_wrappers_raise_on_bad_cuda_input(cuda):
+    """K10-K13 refuse a dtype, a device or a shape their kernel does not
+    take; nothing falls back."""
+    stacked = _random_case("transpose_pack_rows", cuda)[1][0]
+    with pytest.raises(ValueError, match="float32"):
+        raster_tiles.transpose_pack_rows(stacked.double())
+    with pytest.raises(ValueError, match="shape"):
+        raster_tiles.transpose_pack_rows(stacked[:64].contiguous())
+    pf, tri, st, p = _random_case("pack_shade_rows_tm", cuda)[1]
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_tiles.pack_shade_rows_tm(pf, tri.cpu(), st, p)
+    with pytest.raises(ValueError, match="float32"):
+        raster_tiles.pack_shade_rows_tm(pf, tri, st.half(), p)
+    with pytest.raises(ValueError, match="shape"):
+        raster_tiles.pack_shade_rows_tm(pf[:20].contiguous(), tri, st, p)
+    with pytest.raises(ValueError, match="p = "):
+        raster_tiles.pack_shade_rows_tm(pf, tri, st, pf.shape[1] + 1)
+    src, s = _random_case("window_lut", cuda)[1]
+    with pytest.raises(ValueError, match="f32"):
+        shadow.window_lut(src.double(), s)
+    with pytest.raises(ValueError, match="does not hold"):
+        shadow.window_lut(src, s + 1)
+    lut, sy, sx = _random_case("pcf_resolve", cuda)[1]
+    with pytest.raises(ValueError, match="CUDA"):
+        shadow.pcf_resolve(lut, sy, sx.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        shadow.pcf_resolve(lut, sy.long(), sx)
+    with pytest.raises(ValueError, match="uint16"):
+        shadow.pcf_resolve(lut.to(torch.int32), sy, sx)
+    with pytest.raises(ValueError, match="shape"):
+        shadow.pcf_resolve(lut, sy, sx[:100])
