@@ -5,89 +5,257 @@
 // _pack16_kernel + _phase_resolve_kernel, which only re-packed
 // table16[sorted_slot] into 128-lane rows for the TPU's DMA.
 //
-// One thread block per screen tile; each thread owns up to 16 pixels of the
-// tile (row-major within the tile). The block walks the tile's pair segment
-// [tile_start[t], tile_start[t+1]) in list order — slot-ascending, so the
-// strict `z < zbuf` keeps the first slot on a depth tie with no atomics —
-// staging each chunk's raster rows (12 floats fetched at row sorted_slot[k]
-// of a row table: lanes 112:124 of the 128-lane shade-row table for the
-// camera pass, lanes 0:12 of the 16-float raster-row table for the shadow
-// pass) in shared memory.
+// Function: each pixel of a tile walks the tile's pair segment
+// [tile_start[t], tile_start[t+1]) in list order with the strict
+// `z < zbuf`, from zbuf = 1.0 and ibuf = -1. The list is slot-ascending, so
+// a depth tie keeps the first slot. A pair's 12 raster floats (A, B, C of
+// three edges, then Az, Bz, Cz) sit at row sorted_slot[k] of a row table:
+// lanes 112:124 of the 128-lane shade-row table for the camera pass, lanes
+// 0:12 of the 16-float raster-row table for the shadow pass.
 //
-// Bound on the H100: per pair, 2 loads of 12 floats and 16 pixels x ~20 FP32
-// ops per thread — compute and the per-chunk barrier, not bytes (tiles are
-// independent, so 132 SMs run them in parallel; a dense tile's list is
-// walked serially by its one block). The simple design keeps the pair loop
-// serial per block for exact draw-order ties; load balancing of dense tiles
-// is later work.
+// Design. One block of kThreads = 128 threads per sub-tile of kBlockPixels
+// = 256 pixels, two pixels a thread. The sub-tile is a rectangle of its
+// tile, as square as the tile's sides allow: 16 x 16 in a 64 x 64 tile.
+// Each block walks its tile's whole list in chunks of 128 pairs, one pair a
+// thread. The thread loads its pair's row (three 16-byte loads where the
+// table's alignment allows) and tests it against the sub-tile's pixel
+// rectangle. The survivors are compacted in list order (warp ballots plus a
+// prefix over the 4 warps) into shared memory. The sub-tile's pixels fall
+// into 8 rectangles of 32 (8 x 4), and warp w owns rectangles w and w + 4,
+// one pixel of each per lane. The warp tests the survivors again, 32 at a
+// time, against each of its rectangles, and evaluates at a rectangle's
+// pixels only those that pass there, two at a time, in list order. A dense
+// tile's list is thereby spread over its sub-tiles' blocks, and each warp
+// evaluates only the pairs that can reach it. The list order, and with it
+// the tie rule, holds inside every block with no atomics, so the result is
+// deterministic. A tile with no pairs only writes its clear values.
+// 16 x 16 sub-tiles of 128 threads were faster than 32 x 32 ones, and had
+// the lowest sum over both passes of the 128- and 256-thread blocks tried
+// (PERF.md).
 //
-// Arithmetic matches raster_tiles.py:479-496 exactly when built with
-// -fmad=false: e = (A*px + B*py) + C and the same for z; accept iff all
-// three edges and z are >= 0 and z < zbuf. The comparisons are written out
-// (not fminf/fmaxf, which drop NaNs) so a NaN plane rejects, as jnp.minimum
+// Why the cull is exact. Built with -fmad=false, an edge value is
+// e = fl(fl(fl(A*px) + fl(B*py)) + C). Round-to-nearest is monotone, and
+// so is overflow to +-inf. For px > 0, fl(A*px) is non-decreasing in px when
+// A > 0, non-increasing when A < 0, and constant when A is +-0 or +-inf. The
+// same holds for py and B, and for adding a constant. So over a rectangle of
+// pixel centres [x_lo, x_hi] x [y_lo, y_hi], no pixel's e exceeds e at the
+// corner px* = (A > 0 ? x_hi : x_lo), py* = (B > 0 ? y_hi : y_lo); or else
+// the pixel's e is NaN (inf - inf), which its own test rejects. That corner
+// is itself a pixel of the rectangle, evaluated with the same expression. A
+// pair is rejected for the sub-tile (or a warp's rectangle) iff
+//   - e_j at its corner is < 0 for one of the three edges, or
+//   - z at its max corner is < 0, or
+//   - z at its min corner (the opposite signs) is >= 1.0: zbuf starts at
+//     1.0 and only decreases, so no z >= 1 is ever accepted.
+// Each of these implies that no pixel of the rectangle accepts the pair. A
+// NaN makes its comparison false, so it never rejects; the per-pixel test
+// then rejects the pair as before. Pixel centres x + 0.5 are exact in f32
+// for every coordinate below 2^23. Do not reassociate (A*px + B*py) + C, and
+// keep -fmad=false (utils/kernels.NVCC_FLAGS): the argument, and the
+// bit-exactness against the plain version, rest on both.
+// ops/raster_tiles.block_rejects states the same test in torch.
+//
+// Bound on the H100: bytes — the depth (and slot) buffer written once, the
+// pair list and the distinct rows read once; the operations any exact
+// raster needs are 22 per covered (pair, pixel), far fewer. What the design
+// pays beyond that: each block loads its tile's rows (mostly from L2) and
+// tests each against its sub-tile, about 30 f32 operations, and each warp
+// tests the survivors against its rectangles; a warp whose rectangle holds
+// a cluster of tiny triangles evaluates them one pair (two with the unroll)
+// after another, which sets the camera pass's tail.
+//
+// The per-pixel accept is raster_tiles.py:479-496's: accept iff all three
+// edges and z are >= 0 and z < zbuf. The comparisons are written out (not
+// fminf/fmaxf, which drop NaNs) so a NaN plane rejects, as jnp.minimum
 // propagates it there.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <cstdlib>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxPixelsPerThread = 16;  // tiles of up to 4096 pixels
-constexpr int kChunk = kThreads;         // pairs staged per chunk
-constexpr int kComps = 12;               // A,B,C x 3 edges, Az,Bz,Cz
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPixelsPerThread = 2;
+constexpr int kLog2BlockPixels = 8;
+constexpr int kBlockPixels = 1 << kLog2BlockPixels;
+static_assert(kThreads * kPixelsPerThread == kBlockPixels, "one pixel per thread per rectangle");
+constexpr int kMaxTilePixels = 4096;
+constexpr int kChunk = kThreads;  // pairs tested per step, one a thread
+constexpr int kComps = 12;        // A,B,C x 3 edges, Az,Bz,Cz
+constexpr int kUnroll = 2;        // survivors evaluated together
+
+struct Rect {
+  float x_lo, x_hi, y_lo, y_hi;  // pixel centres
+};
+
+__device__ __forceinline__ Rect pixel_rect(int x0, int y0, int w, int h) {
+  return Rect{(float)x0 + 0.5f, (float)(x0 + w - 1) + 0.5f, (float)y0 + 0.5f,
+              (float)(y0 + h - 1) + 0.5f};
+}
+
+// The plane's largest value over the rectangle is < 0.
+__device__ __forceinline__ bool below_zero(float a, float b, float c, const Rect& r) {
+  const float x = a > 0.0f ? r.x_hi : r.x_lo;
+  const float y = b > 0.0f ? r.y_hi : r.y_lo;
+  return a * x + b * y + c < 0.0f;
+}
+
+// The plane's smallest value over the rectangle is >= 1.
+__device__ __forceinline__ bool at_least_one(float a, float b, float c, const Rect& r) {
+  const float x = a > 0.0f ? r.x_lo : r.x_hi;
+  const float y = b > 0.0f ? r.y_lo : r.y_hi;
+  return a * x + b * y + c >= 1.0f;
+}
+
+__device__ __forceinline__ bool rejects(const float (&v)[kComps], const Rect& r) {
+  return below_zero(v[0], v[1], v[2], r) || below_zero(v[3], v[4], v[5], r) ||
+         below_zero(v[6], v[7], v[8], r) || below_zero(v[9], v[10], v[11], r) ||
+         at_least_one(v[9], v[10], v[11], r);
+}
+
+__device__ __forceinline__ void unpack(const float4 (&q)[kComps / 4], float (&v)[kComps]) {
+#pragma unroll
+  for (int j = 0; j < kComps / 4; ++j) {
+    v[4 * j] = q[j].x;
+    v[4 * j + 1] = q[j].y;
+    v[4 * j + 2] = q[j].z;
+    v[4 * j + 3] = q[j].w;
+  }
+}
 
 template <bool kWriteIbuf>
 __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
-    const float* __restrict__ rows, int row_stride, int lane0,
+    const float* __restrict__ rows, int row_stride, int lane0, bool vec_rows,
     const int* __restrict__ sorted_slot, const int* __restrict__ tile_start,
-    int tiles_x, int tile_h, int tile_w, int out_w,
+    int tiles_x, int tile_h, int tile_w, int block_w_log2, int rect_w_log2, int out_w,
     float* __restrict__ zbuf, int* __restrict__ ibuf) {
-  __shared__ float s_row[kChunk][kComps];
+  __shared__ float4 s_row[kChunk][kComps / 4];
   __shared__ int s_slot[kChunk];
+  __shared__ int s_count[kWarps];
 
-  const int t = blockIdx.x;
-  const int tx = t % tiles_x;
-  const int ty = t / tiles_x;
-  const int npix = tile_h * tile_w;
-  const int ppt = npix / kThreads;
+  const int block_w = 1 << block_w_log2;
+  const int block_h = kBlockPixels >> block_w_log2;
+  const int blocks_x = tile_w >> block_w_log2;
+  const int per_tile = blocks_x * (tile_h / block_h);
+  const int t = blockIdx.x / per_tile;
+  const int b = blockIdx.x - t * per_tile;
+  const int x0 = (t % tiles_x) * tile_w + (b % blocks_x) * block_w;
+  const int y0 = (t / tiles_x) * tile_h + (b / blocks_x) * block_h;
   const int begin = tile_start[t];
   const int end = tile_start[t + 1];
 
-  float px[kMaxPixelsPerThread], py[kMaxPixelsPerThread];
-  float z[kMaxPixelsPerThread];
-  int id[kMaxPixelsPerThread];
+  // The block's pixels fall into kWarps * kPixelsPerThread rectangles of 32
+  // (rect_w x rect_h, row-major in the block); thread (warp, lane) owns lane
+  // l's pixel (row-major) of rectangles warp + kWarps * i.
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rect_w = 1 << rect_w_log2;
+  const int rect_h = 32 >> rect_w_log2;
+  const int rects_x = block_w >> rect_w_log2;
+  int rx[kPixelsPerThread], ry[kPixelsPerThread];
+  float px[kPixelsPerThread], py[kPixelsPerThread], z[kPixelsPerThread];
+  int id[kPixelsPerThread];
 #pragma unroll
-  for (int i = 0; i < kMaxPixelsPerThread; ++i) {
-    const int p = threadIdx.x + i * kThreads;
-    px[i] = (float)(tx * tile_w + p % tile_w) + 0.5f;
-    py[i] = (float)(ty * tile_h + p / tile_w) + 0.5f;
+  for (int i = 0; i < kPixelsPerThread; ++i) {
+    const int r = warp + kWarps * i;
+    rx[i] = x0 + (r % rects_x) * rect_w;
+    ry[i] = y0 + (r / rects_x) * rect_h;
+    px[i] = (float)(rx[i] + (lane & (rect_w - 1))) + 0.5f;
+    py[i] = (float)(ry[i] + (lane >> rect_w_log2)) + 0.5f;
     z[i] = 1.0f;
     id[i] = -1;
   }
 
-  for (int c0 = begin; c0 < end; c0 += kChunk) {
-    const int n = min(kChunk, end - c0);
-    __syncthreads();  // the previous chunk is fully consumed
-    if (threadIdx.x < n) {
-      const int s = sorted_slot[c0 + threadIdx.x];
-      const float* r = rows + (size_t)s * row_stride + lane0;
-      s_slot[threadIdx.x] = s;
+  if (begin < end) {
+    const Rect block_rect = pixel_rect(x0, y0, block_w, block_h);
+    for (int c0 = begin; c0 < end; c0 += kChunk) {
+      const int k = c0 + threadIdx.x;
+      float v[kComps];
+      int s = 0;
+      bool keep = false;
+      if (k < end) {
+        s = sorted_slot[k];
+        const float* r = rows + (size_t)s * row_stride + lane0;
+        if (vec_rows) {
+          float4 q[kComps / 4];
 #pragma unroll
-      for (int j = 0; j < kComps; ++j) s_row[threadIdx.x][j] = r[j];
-    }
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float* r = s_row[k];
+          for (int j = 0; j < kComps / 4; ++j) q[j] = reinterpret_cast<const float4*>(r)[j];
+          unpack(q, v);
+        } else {
 #pragma unroll
-      for (int i = 0; i < kMaxPixelsPerThread; ++i) {
-        if (i < ppt) {
-          const float e0 = r[0] * px[i] + r[1] * py[i] + r[2];
-          const float e1 = r[3] * px[i] + r[4] * py[i] + r[5];
-          const float e2 = r[6] * px[i] + r[7] * py[i] + r[8];
-          const float zz = r[9] * px[i] + r[10] * py[i] + r[11];
-          if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && zz >= 0.0f && zz < z[i]) {
-            z[i] = zz;
-            if (kWriteIbuf) id[i] = s_slot[k];
+          for (int j = 0; j < kComps; ++j) v[j] = r[j];
+        }
+        keep = !rejects(v, block_rect);
+      }
+      // Stable compaction: survivor rank = survivors in earlier warps +
+      // survivors in earlier lanes of this warp.
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      __syncthreads();  // the previous chunk's survivors are consumed
+      if (lane == 0) s_count[warp] = __popc(ballot);
+      __syncthreads();
+      int pos = __popc(ballot & ((1u << lane) - 1u));
+      int total = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = s_count[w];
+        pos += w < warp ? c : 0;
+        total += c;
+      }
+      if (keep) {
+#pragma unroll
+        for (int j = 0; j < kComps / 4; ++j)
+          s_row[pos][j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+        s_slot[pos] = s;
+      }
+      __syncthreads();
+      for (int g = 0; g < total; g += 32) {
+        bool hit[kPixelsPerThread];
+        if (g + lane < total) {
+          unpack(s_row[g + lane], v);
+#pragma unroll
+          for (int i = 0; i < kPixelsPerThread; ++i)
+            hit[i] = !rejects(v, pixel_rect(rx[i], ry[i], rect_w, rect_h));
+        } else {
+#pragma unroll
+          for (int i = 0; i < kPixelsPerThread; ++i) hit[i] = false;
+        }
+#pragma unroll
+        for (int i = 0; i < kPixelsPerThread; ++i) {
+          // The survivors that pass rectangle i, kUnroll at a time: their
+          // planes are independent, the accepts run in list order.
+          unsigned mask = __ballot_sync(0xffffffffu, hit[i]);
+          while (mask != 0) {
+            int j[kUnroll];
+            bool live[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              live[u] = mask != 0;
+              j[u] = live[u] ? g + __ffs(mask) - 1 : g;
+              mask &= mask - 1;
+            }
+            float e0[kUnroll], e1[kUnroll], e2[kUnroll], zz[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              // (A0 B0 C0 A1) (B1 C1 A2 B2) (C2 Az Bz Cz)
+              const float4 ra = s_row[j[u]][0];
+              const float4 rb = s_row[j[u]][1];
+              const float4 rc = s_row[j[u]][2];
+              e0[u] = ra.x * px[i] + ra.y * py[i] + ra.z;
+              e1[u] = ra.w * px[i] + rb.x * py[i] + rb.y;
+              e2[u] = rb.z * px[i] + rb.w * py[i] + rc.x;
+              zz[u] = rc.y * px[i] + rc.z * py[i] + rc.w;
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              if (live[u] && e0[u] >= 0.0f && e1[u] >= 0.0f && e2[u] >= 0.0f && zz[u] >= 0.0f &&
+                  zz[u] < z[i]) {
+                z[i] = zz[u];
+                if (kWriteIbuf) id[i] = s_slot[j[u]];
+              }
+            }
           }
         }
       }
@@ -95,14 +263,24 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
   }
 
 #pragma unroll
-  for (int i = 0; i < kMaxPixelsPerThread; ++i) {
-    if (i < ppt) {
-      const int p = threadIdx.x + i * kThreads;
-      const size_t o = (size_t)(ty * tile_h + p / tile_w) * out_w + tx * tile_w + p % tile_w;
-      zbuf[o] = z[i];
-      if (kWriteIbuf) ibuf[o] = id[i];
-    }
+  for (int i = 0; i < kPixelsPerThread; ++i) {
+    const size_t o =
+        (size_t)(ry[i] + (lane >> rect_w_log2)) * out_w + rx[i] + (lane & (rect_w - 1));
+    zbuf[o] = z[i];
+    if (kWriteIbuf) ibuf[o] = id[i];
   }
+}
+
+// log2 of the width of the squarest w x h rectangle of 2^area_log2 pixels,
+// w a power of two, that tiles a width x height area (the wider of two
+// equally square ones); -1 if none does.
+int squarest(int width, int height, int area_log2) {
+  int best = -1;
+  for (int c = 0; c <= area_log2; ++c) {
+    if (width % (1 << c) != 0 || height % ((1 << area_log2) >> c) != 0) continue;
+    if (best < 0 || abs(2 * c - area_log2) <= abs(2 * best - area_log2)) best = c;
+  }
+  return best;
 }
 
 }  // namespace
@@ -114,19 +292,25 @@ extern "C" int arctic_raster_tiles(
     const float* rows, int row_stride, int lane0, const int* sorted_slot,
     const int* tile_start, int num_tiles, int tiles_x, int tile_h, int tile_w,
     int out_w, float* zbuf, int* ibuf, void* stream) {
-  const int npix = tile_h * tile_w;
   if (num_tiles <= 0) return (int)cudaSuccess;
-  if (npix % kThreads != 0 || npix > kThreads * kMaxPixelsPerThread)
-    return (int)cudaErrorInvalidValue;
+  if (tile_h * tile_w > kMaxTilePixels) return (int)cudaErrorInvalidValue;
+  // The sub-tile, then the 32-pixel rectangles in it (those always fit: the
+  // sub-tile's sides are powers of two).
+  const int block_w_log2 = squarest(tile_w, tile_h, kLog2BlockPixels);
+  if (block_w_log2 < 0) return (int)cudaErrorInvalidValue;
+  const int rect_w_log2 = squarest(1 << block_w_log2, kBlockPixels >> block_w_log2, 5);
+  const bool vec_rows =
+      reinterpret_cast<uintptr_t>(rows) % 16 == 0 && row_stride % 4 == 0 && lane0 % 4 == 0;
+  const unsigned blocks = (unsigned)((long long)num_tiles * (tile_h * tile_w / kBlockPixels));
   cudaStream_t s = (cudaStream_t)stream;
   if (ibuf != nullptr) {
-    raster_tiles_kernel<true><<<num_tiles, kThreads, 0, s>>>(
-        rows, row_stride, lane0, sorted_slot, tile_start, tiles_x, tile_h,
-        tile_w, out_w, zbuf, ibuf);
+    raster_tiles_kernel<true><<<blocks, kThreads, 0, s>>>(
+        rows, row_stride, lane0, vec_rows, sorted_slot, tile_start, tiles_x, tile_h, tile_w,
+        block_w_log2, rect_w_log2, out_w, zbuf, ibuf);
   } else {
-    raster_tiles_kernel<false><<<num_tiles, kThreads, 0, s>>>(
-        rows, row_stride, lane0, sorted_slot, tile_start, tiles_x, tile_h,
-        tile_w, out_w, zbuf, ibuf);
+    raster_tiles_kernel<false><<<blocks, kThreads, 0, s>>>(
+        rows, row_stride, lane0, vec_rows, sorted_slot, tile_start, tiles_x, tile_h, tile_w,
+        block_w_log2, rect_w_log2, out_w, zbuf, ibuf);
   }
   return (int)cudaGetLastError();
 }

@@ -40,6 +40,33 @@ PLAIN_CHUNK = 1024
 # --------------------------------------------------------------------------
 
 
+def _pair_chunks(rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w):
+    """Every pair of the lists against every pixel of its tile, PLAIN_CHUNK
+    pairs at a time: yields (list positions (n,), z (n, tile px), inside
+    (n, tile px): all three edges >= 0, global pixel index (n, tile px) in
+    the (tiles_y * tile_h, tiles_x * tile_w) buffer), each plane evaluated
+    as (A*px + B*py) + C at the pixel centre, as K1 does."""
+    dev = rows.device
+    n_pairs = int(tile_start[-1])
+    loc = torch.arange(tile_h * tile_w, device=dev)
+    lx, ly = loc % tile_w, loc // tile_w
+    tile_start = tile_start.long()
+    for k0 in range(0, n_pairs, PLAIN_CHUNK):
+        ks = torch.arange(k0, min(k0 + PLAIN_CHUNK, n_pairs), device=dev)
+        t = torch.searchsorted(tile_start, ks, right=True) - 1
+        r = rows[sorted_slot[ks].long(), lane0 : lane0 + 12]
+        gx = (t % tiles_x)[:, None] * tile_w + lx[None]
+        gy = (t // tiles_x)[:, None] * tile_h + ly[None]
+        px = gx.to(torch.float32) + 0.5
+        py = gy.to(torch.float32) + 0.5
+
+        def plane(j):
+            return r[:, j : j + 1] * px + r[:, j + 1 : j + 2] * py + r[:, j + 2 : j + 3]
+
+        inside = (plane(0) >= 0.0) & (plane(3) >= 0.0) & (plane(6) >= 0.0)
+        yield ks, plane(9), inside, gy * (tiles_x * tile_w) + gx
+
+
 def raster_tiles_plain(
     rows, lane0, sorted_slot, tile_start, tiles_x, tiles_y, tile_h, tile_w,
     depth_only=False,
@@ -53,34 +80,19 @@ def raster_tiles_plain(
     n_pairs = int(tile_start[-1])
     zbuf = torch.full((hp * wp,), torch.inf, dtype=torch.float32, device=dev)
     kbuf = torch.full((hp * wp,), n_pairs, dtype=torch.int64, device=dev)
-    loc = torch.arange(tile_h * tile_w, device=dev)
-    lx, ly = loc % tile_w, loc // tile_w
-    tile_start = tile_start.long()
 
-    def evaluate(k0, k1):
-        ks = torch.arange(k0, k1, device=dev)
-        t = torch.searchsorted(tile_start, ks, right=True) - 1
-        r = rows[sorted_slot[k0:k1].long(), lane0 : lane0 + 12]
-        gx = (t % tiles_x)[:, None] * tile_w + lx[None]
-        gy = (t // tiles_x)[:, None] * tile_h + ly[None]
-        px = gx.to(torch.float32) + 0.5
-        py = gy.to(torch.float32) + 0.5
+    def evaluate():
+        for ks, z, inside, pix in _pair_chunks(
+            rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w
+        ):
+            ok = inside & (z >= 0.0) & (z < 1.0)
+            yield ks, torch.where(ok, z, torch.inf), pix
 
-        def plane(j):
-            return r[:, j : j + 1] * px + r[:, j + 1 : j + 2] * py + r[:, j + 2 : j + 3]
-
-        z = plane(9)
-        ok = (plane(0) >= 0.0) & (plane(3) >= 0.0) & (plane(6) >= 0.0)
-        ok = ok & (z >= 0.0) & (z < 1.0)
-        return ks, torch.where(ok, z, torch.inf), gy * wp + gx
-
-    for k0 in range(0, n_pairs, PLAIN_CHUNK):
-        _, zacc, pix = evaluate(k0, min(k0 + PLAIN_CHUNK, n_pairs))
+    for _, zacc, pix in evaluate():
         zbuf.scatter_reduce_(0, pix.reshape(-1), zacc.reshape(-1), "amin")
     ibuf = None
     if not depth_only:
-        for k0 in range(0, n_pairs, PLAIN_CHUNK):
-            ks, zacc, pix = evaluate(k0, min(k0 + PLAIN_CHUNK, n_pairs))
+        for ks, zacc, pix in evaluate():
             win = (zacc == zbuf[pix]) & torch.isfinite(zacc)
             cand = torch.where(win, ks[:, None], n_pairs)
             kbuf.scatter_reduce_(0, pix.reshape(-1), cand.reshape(-1), "amin")
@@ -91,6 +103,44 @@ def raster_tiles_plain(
         ibuf = ibuf.reshape(hp, wp)
     zbuf = torch.where(torch.isinf(zbuf), 1.0, zbuf).reshape(hp, wp)
     return zbuf, ibuf
+
+
+def block_rejects(rows12, x_lo, x_hi, y_lo, y_hi):
+    """K1's per-block cull (csrc/raster_tiles.cu) for (K, 12) f32 raster
+    rows and a rectangle of pixel centres [x_lo, x_hi] x [y_lo, y_hi]: (K,)
+    bool, True where the pair is rejected for every pixel of it — an edge
+    below 0 at its largest corner, z below 0 at its largest or >= 1 at its
+    smallest. Same f32 operations in the same order as the kernel; the
+    kernel's header note says why no pixel of the rectangle then accepts."""
+
+    def at(a, b, c, x_if_pos, x_else, y_if_pos, y_else):
+        x = torch.where(a > 0.0, x_if_pos, x_else)
+        y = torch.where(b > 0.0, y_if_pos, y_else)
+        return a * x + b * y + c
+
+    x_lo, x_hi, y_lo, y_hi = (
+        torch.tensor(v, dtype=torch.float32, device=rows12.device) for v in (x_lo, x_hi, y_lo, y_hi)
+    )
+    r = [rows12[:, j] for j in range(12)]
+    rejected = at(*r[9:12], x_lo, x_hi, y_lo, y_hi) >= 1.0
+    for j in (0, 3, 6, 9):
+        rejected |= at(*r[j : j + 3], x_hi, x_lo, y_hi, y_lo) < 0.0
+    return rejected
+
+
+def covered_pair_pixels(
+    rows, lane0, sorted_slot, tile_start, tiles_x, tiles_y, tile_h, tile_w,
+    depth_only=False,
+) -> int:
+    """The (pair, pixel of its tile) combinations of one K1 call whose three
+    edge tests pass: the depth tests that any exact raster of these lists
+    makes (K1's operations bound; takes K1's arguments)."""
+    return sum(
+        int(inside.sum())
+        for _, _, inside, _ in _pair_chunks(
+            rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w
+        )
+    )
 
 
 @kernels.kernel(

@@ -1,0 +1,203 @@
+"""Synthetic kernel inputs, made from a seed with numpy, that hold K1 and K3
+to their plain versions beyond what a frame gives them: the CPU tests, the
+card's tests and chip_smoke.py share them.
+
+K1: one 64 x 64 tile with a list far denser than any frame's (20,480 pairs
+by default), and the same planes among sparse and empty tiles on a
+4000 x 4000 depth-only grid. The triangles are pixel-space triangles, mostly
+a few pixels wide, with every case the per-block cull must get right:
+slivers with vertex angles down to 1e-6 rad, edge coefficients up to 1e6,
+edges through pixel centres (e = 0 exactly), constant-depth groups nearer
+than everything else (equal-z ties, decided by list order), z = +0.0 and
+-0.0 planes, NaN and +-inf coefficients, and exact duplicate rows inside one
+of the kernel's chunks (128 pairs) and across chunk boundaries. And a few
+tiles of every shape the wrapper takes (16 x 16 to 64 x 64, non-square,
+sides that are not powers of two), whose sub-tile layout K1 derives from
+the tile's sides.
+
+K3: random planes (NaN and +-inf included) over a slot count that is not a
+multiple of the kernel's 32-slot block.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+TILE = 64
+GRID_SIZE = 4000
+DENSE_PAIRS = 20480
+# Tiles of the grid that carry a dense list: the corner tiles (pixel
+# coordinates up to 4031.5) and one inside.
+DENSE_TILES = ((0, 0), (31, 40), (62, 62))
+# List positions whose rows repeat an earlier one: inside one of the
+# kernel's 128-pair chunks and across chunk boundaries.
+DUPLICATES = ((1, 0), (40, 3), (256, 255), (512, 511), (513, 255), (1024, 1), (1290, 700))
+
+
+def edge_and_z_rows(x, y, z):
+    """(n, 12) f64 raster rows of pixel-space triangles with vertices
+    (x, y) (n, 3) and vertex depths z (n, 3): three edge planes, positive
+    inside, then the z plane."""
+    area2 = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
+    sign = np.where(area2 < 0, -1.0, 1.0)
+    rows = np.zeros((x.shape[0], 12))
+    for e in range(3):
+        a, b = e, (e + 1) % 3
+        rows[:, 3 * e] = sign * (y[:, a] - y[:, b])
+        rows[:, 3 * e + 1] = sign * (x[:, b] - x[:, a])
+        rows[:, 3 * e + 2] = sign * (x[:, a] * y[:, b] - x[:, b] * y[:, a])
+    safe = np.where(area2 == 0, 1.0, area2)
+    dz1, dz2 = z[:, 1] - z[:, 0], z[:, 2] - z[:, 0]
+    az = (dz1 * (y[:, 2] - y[:, 0]) - dz2 * (y[:, 1] - y[:, 0])) / safe
+    bz = ((x[:, 1] - x[:, 0]) * dz2 - (x[:, 2] - x[:, 0]) * dz1) / safe
+    rows[:, 9], rows[:, 10] = az, bz
+    rows[:, 11] = z[:, 0] - az * x[:, 0] - bz * y[:, 0]
+    return rows
+
+
+def raster_rows(rng: np.random.Generator, cx, cy) -> np.ndarray:
+    """(n, 12) f32 raster rows of triangles around the pixel positions
+    (cx, cy): 82% a few pixels wide (the equal-z, z = +-0 and NaN / inf
+    groups among them), the rest up to 160 px, with the special cases of the
+    module docstring mixed in."""
+    n = cx.shape[0]
+    kind = rng.integers(0, 100, n)
+    small = (kind < 70) | ((kind >= 75) & (kind < 87))
+    size = np.where(small, rng.uniform(0.5, 8.0, n), rng.uniform(8.0, 160.0, n))
+    ang = rng.uniform(0.0, 2.0 * np.pi, (n, 3))
+    rad = size[:, None] * rng.uniform(0.3, 1.0, (n, 3))
+    x = cx[:, None] + rad * np.cos(ang)
+    y = cy[:, None] + rad * np.sin(ang)
+    z = rng.uniform(0.02, 0.98, (n, 3))
+
+    sliver = (kind >= 70) & (kind < 75)  # vertex angle 1e-6 .. 1e-2 rad
+    length = rng.uniform(4.0, 200.0, n)
+    theta = rng.uniform(0.0, 2.0 * np.pi, n)
+    lean = length / 2 * np.tan(10.0 ** rng.uniform(-6.0, -2.0, n))
+    sx = np.stack([cx, cx + length * np.cos(theta),
+                   cx + length / 2 * np.cos(theta) - lean * np.sin(theta)], 1)
+    sy = np.stack([cy, cy + length * np.sin(theta),
+                   cy + length / 2 * np.sin(theta) + lean * np.cos(theta)], 1)
+    x, y = np.where(sliver[:, None], sx, x), np.where(sliver[:, None], sy, y)
+
+    centred = (kind >= 90) & (kind < 95)  # right triangles on pixel centres
+    ox, oy = np.floor(cx) + 0.5, np.floor(cy) + 0.5
+    w = rng.integers(1, 12, n) * rng.choice([-1, 1], n)
+    h = rng.integers(1, 12, n) * rng.choice([-1, 1], n)
+    x = np.where(centred[:, None], np.stack([ox, ox + w, ox], 1), x)
+    y = np.where(centred[:, None], np.stack([oy, oy, oy + h], 1), y)
+
+    flat = sliver | ((kind >= 75) & (kind < 80))  # constant depth
+    z = np.where(flat[:, None], np.where(sliver, z[:, 0], 0.01)[:, None], z)
+    rows = edge_and_z_rows(x, y, z)
+
+    huge = (kind >= 87) & (kind < 90)  # edge coefficients up to 1e6
+    scale = 1e6 / np.maximum(np.abs(rows[:, [0, 1, 3, 4, 6, 7]]).max(1), 1e-30)
+    rows[huge, :9] *= scale[huge, None]
+    rows = rows.astype(np.float32)
+
+    zero = (kind >= 80) & (kind < 83)  # z = +0.0 / -0.0 planes
+    rows[zero, 9:11] = 0.0
+    rows[zero, 11] = np.where(rng.uniform(size=n) < 0.5, np.float32(0.0), np.float32(-0.0))[zero]
+    special = (kind >= 83) & (kind < 87)  # one NaN / +inf / -inf coefficient
+    lanes = rng.integers(0, 12, n)
+    values = np.array([np.nan, np.inf, -np.inf], np.float32)[rng.integers(0, 3, n)]
+    rows[special, lanes[special]] = values[special]
+    return rows
+
+
+def _tile_rows(rng, tx, ty, n, th=TILE, tw=TILE):
+    margin = 12.0
+    cx = tx * tw + rng.uniform(-margin, tw + margin, n)
+    cy = ty * th + rng.uniform(-margin, th + margin, n)
+    rows = raster_rows(rng, cx, cy)
+    for dst, src in DUPLICATES:
+        if dst < n:
+            rows[dst] = rows[src]
+    return rows
+
+
+def _k1_args(device, tiles, tiles_x, tiles_y, lanes, lane0, rng, th=TILE, tw=TILE):
+    """K1 arguments from per-tile row lists (tile index -> (k, 12) f32):
+    every pair its own slot, slots in list order, and one unused slot of
+    NaNs between tiles (never listed)."""
+    counts = np.zeros(tiles_x * tiles_y, np.int64)
+    parts, slots, nxt = [], [], 0
+    for t in sorted(tiles):
+        r = tiles[t]
+        counts[t] = r.shape[0]
+        parts.append(np.full((1, 12), np.nan, np.float32))
+        parts.append(r)
+        slots.append(np.arange(nxt + 1, nxt + 1 + r.shape[0], dtype=np.int32))
+        nxt += 1 + r.shape[0]
+    comps = np.concatenate(parts) if parts else np.zeros((0, 12), np.float32)
+    table = rng.standard_normal((comps.shape[0], lanes)).astype(np.float32)
+    table[:, lane0 : lane0 + 12] = comps
+    tile_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    sorted_slot = np.concatenate(slots) if slots else np.zeros(0, np.int32)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    return (dev(table), lane0, dev(sorted_slot), dev(tile_start), tiles_x, tiles_y, th, tw)
+
+
+def k1_dense_tile(device, seed: int = 0, n_pairs: int = DENSE_PAIRS, lanes: int = 128,
+                  lane0: int = 112):
+    """K1's (args, kwargs) for one 64 x 64 tile with ``n_pairs`` pairs, the
+    camera pass's way (ibuf written). The row table's width and the lanes of
+    the raster comps are the caller's: the 128-lane shade-row table at lane
+    112 by default; a lane0 that is not a multiple of 4 takes the kernel's
+    scalar row load."""
+    rng = np.random.default_rng(seed)
+    rows = _tile_rows(rng, 0, 0, n_pairs)
+    return _k1_args(device, {0: rows}, 1, 1, lanes, lane0, rng), {}
+
+
+def k1_grid(device, seed: int = 0, n_pairs: int = DENSE_PAIRS):
+    """K1's (args, kwargs) for a depth-only 4000 x 4000 map (63 x 63 tiles of
+    64, the 16-float raster-row table): tile (0, 0) holds the planes of
+    ``k1_dense_tile(seed)``, the other DENSE_TILES dense lists of their own,
+    and the rest 0-40 pairs each, a third of them none."""
+    rng = np.random.default_rng(seed)
+    n = -(-GRID_SIZE // TILE)
+    tiles = {0: _tile_rows(rng, 0, 0, n_pairs)}
+    for tx, ty in DENSE_TILES[1:]:
+        tiles[ty * n + tx] = _tile_rows(np.random.default_rng(seed + 1 + tx), tx, ty, n_pairs)
+    sparse = np.random.default_rng(seed + 100)
+    for t in range(n * n):
+        if t not in tiles and sparse.uniform() >= 1 / 3:
+            tiles[t] = _tile_rows(sparse, t % n, t // n, int(sparse.integers(1, 41)))
+    return _k1_args(device, tiles, n, n, 16, 0, rng), {"depth_only": True}
+
+
+def k1_tiles(device, tile_h: int, tile_w: int, depth_only: bool = False, seed: int = 0):
+    """K1's (args, kwargs) for a 3 x 2 grid of tile_h x tile_w tiles: one
+    with 2,000 pairs, one empty, the rest 1-300 pairs; the camera pass's
+    128-lane rows (ibuf written), or with ``depth_only`` the shadow pass's
+    16-float rows."""
+    rng = np.random.default_rng(seed)
+    tiles_x, tiles_y = 3, 2
+    counts = [2000, 0, *rng.integers(1, 301, tiles_x * tiles_y - 2)]
+    tiles = {t: _tile_rows(rng, t % tiles_x, t // tiles_x, int(n), tile_h, tile_w)
+             for t, n in enumerate(counts) if n}
+    lanes, lane0 = (16, 0) if depth_only else (128, 112)
+    args = _k1_args(device, tiles, tiles_x, tiles_y, lanes, lane0, rng, tile_h, tile_w)
+    return args, {"depth_only": depth_only}
+
+
+def k3_ragged(device, seed: int = 0, n: int | None = None):
+    """K3's (pf (48, N), st (56, N), p) with N not a multiple of 32 (random
+    in [1000, 100000) unless given) and p < N; 0.1% of the values NaN or
+    +-inf."""
+    rng = np.random.default_rng(seed)
+    if n is None:
+        n = int(rng.integers(1000, 100000))
+        n += 0 if n % 32 else 13
+    planes = rng.standard_normal((104, n)).astype(np.float32)
+    odd = rng.uniform(size=planes.shape) < 1e-3
+    planes[odd] = np.array([np.nan, np.inf, -np.inf], np.float32)[rng.integers(0, 3, int(odd.sum()))]
+    p = int(rng.integers(n // 2, n))
+    t = torch.from_numpy(planes).to(device)
+    return t[:48].contiguous(), t[48:].contiguous(), p

@@ -65,13 +65,18 @@ raises on failure (exit code != 0):
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded): bit-exact
    equality, CUDA-event times of kernel and plain version at the real-size
-   shapes, and each kernel's bound on these inputs (bytes over 3.35 TB/s
-   or f32 operations over 67 TFLOP/s, whichever is larger); K10 and K12
-   also against the one library call that computes their function. K11
-   runs on the default frame's own K3 planes (split slot-major / tri-major)
-   and must equal K3's table; K13 on the quantised frame 0's K7 table and
-   listed penumbra rows, and _tap_count over its planes must equal K8's
-   counts.
+   shapes (K1 also per call: camera, shadow), and each kernel's bound on
+   these inputs (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
+   whichever is larger; K1's operations are those of the (pair, pixel)
+   combinations inside all three edges); K10 and K12 also against the one
+   library call that computes their function. K11 runs on the default
+   frame's own K3 planes (split slot-major / tri-major) and must equal K3's
+   table; K13 on the quantised frame 0's K7 table and listed penumbra rows,
+   and _tap_count over its planes must equal K8's counts. K1 and K3 also
+   run on utils/synthetic.py's inputs (a 20,480-pair tile with ties,
+   duplicates, slivers, z = +-0 and NaN planes; the same planes on a
+   depth-only 4000^2 grid; a slot count that is not a multiple of K3's
+   block), bit-exact against their plain versions.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Frames are saved under build/chip_smoke/ as
@@ -890,7 +895,7 @@ def work(name, args, kw):
     rows actually listed)."""
     import torch
 
-    from arctic_tpu_torch.ops import shadow
+    from arctic_tpu_torch.ops import raster_tiles, shadow
 
     if name == "raster_tiles":
         rows, _, sorted_slot, tile_start, tiles_x, tiles_y, th, tw = args[:8]
@@ -899,8 +904,9 @@ def work(name, args, kw):
         outputs = 1 if kw.get("depth_only") else 2
         nbytes = 4 * (n + tile_start.numel() + 12 * _distinct(sorted_slot[:n], rows.shape[0])
                       + outputs * px)
-        # per (pair, tile pixel): 4 planes x (2 mul + 2 add), 6 compares
-        return nbytes, 22 * n * th * tw
+        # per (pair, pixel) inside its three edges — the depth tests any exact
+        # raster of these lists makes: 4 planes x (2 mul + 2 add), 6 compares
+        return nbytes, 22 * raster_tiles.covered_pair_pixels(*args, **kw)
     if name == "pack_shade_rows":
         pf, st, p = args
         return 4 * pf.shape[1] * (48 + 56 + 128), 264 * p
@@ -958,22 +964,20 @@ def work(name, args, kw):
     raise KeyError(name)
 
 
-def bound(calls):
-    """(bound_ms, bound_by) of one frame's calls of a kernel: per call the
-    larger of bytes / HBM rate and operations / f32 rate, summed."""
-    t_bytes = t_ops = total = 0.0
-    for name, args, kw in calls:
-        nbytes, ops = work(name, args, kw)
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        t_bytes, t_ops, total = t_bytes + tb, t_ops + to, total + max(tb, to)
-    return total, ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(name, args, kw):
+    """(bytes ms, operations ms) of one call: the bytes it must move over
+    the HBM rate and the f32 operations its data needs over the f32 rate;
+    its bound is the larger."""
+    nbytes, ops = work(name, args, kw)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
 
 
 def compare_kernels(calls, label: str, names, timed=()):
     """Each recorded call of the named kernels: kernel vs plain version on
     the same inputs. Returns {kernel: {"max_abs_err", "ms", "plain_ms",
-    "bound_ms", "bound_by"}} for the ``timed`` kernels (times summed over
-    the kernel's calls in one frame), {"max_abs_err"} for the others."""
+    "bound_ms", "bound_by"}} for the ``timed`` kernels (times and bounds
+    summed over the kernel's calls in one frame; K1's two calls are also
+    printed apart), {"max_abs_err"} for the others."""
     import torch
 
     from arctic_tpu_torch.utils import kernels
@@ -985,7 +989,7 @@ def compare_kernels(calls, label: str, names, timed=()):
             continue
         if name not in calls:
             raise RuntimeError(f"{label}: kernel {name} was not called")
-        err, ms, plain_ms = 0.0, 0.0, 0.0
+        err, per_call = 0.0, []
         for args, kw in calls[name]:
             got = _tensors(fn(*args, **kw))
             want = _tensors(fn.plain(*args, **kw))
@@ -996,16 +1000,42 @@ def compare_kernels(calls, label: str, names, timed=()):
                     raise RuntimeError(f"{label}: {name} differs from its plain version (max {d})")
                 err = max(err, d)
             if name in timed:
-                ms += cuda_ms(lambda: fn(*args, **kw), 20)
-                plain_ms += cuda_ms(lambda: fn.plain(*args, **kw), 2)
+                per_call.append((cuda_ms(lambda: fn(*args, **kw), 20),
+                                 cuda_ms(lambda: fn.plain(*args, **kw), 2),
+                                 *bound_ms(name, args, kw)))
         result[name] = dict(max_abs_err=err)
         if name in timed:
-            b_ms, b_by = bound([(name, a, k) for a, k in calls[name]])
+            ms, plain_ms, t_bytes, t_ops = (sum(c[i] for c in per_call) for i in range(4))
+            b_ms = sum(max(c[2], c[3]) for c in per_call)
+            b_by = "bytes" if t_bytes >= t_ops else "operations"
             result[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"{label}: {name} x{len(calls[name])} bit-exact vs plain"
             + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
                f"({b_by}) per frame" if name in timed else ""))
+        if name == "raster_tiles":  # K1's calls apart: the shadow pass, the camera pass
+            for (args, kw), (c_ms, c_plain, c_bytes, c_ops) in zip(calls[name], per_call):
+                call = "shadow" if kw.get("depth_only") else "camera"
+                log(f"{label}: {name} {call} call: kernel {c_ms:.4f} ms, plain "
+                    f"{c_plain:.4f} ms, bound {max(c_bytes, c_ops):.4f} ms (bytes "
+                    f"{c_bytes:.4f} ms, operations {c_ops:.4f} ms), share "
+                    f"{max(c_bytes, c_ops) / c_ms:.1%}")
     return result
+
+
+def synthetic_calls(device) -> dict:
+    """K1 on utils/synthetic.py's 20,480-pair tile (camera layout, ibuf) and
+    on the depth-only 4000^2 grid of the same planes, K3 on a slot count
+    that is not a multiple of its 32-slot block: the calls phase 5 holds
+    bit-exact against the plain versions."""
+    from arctic_tpu_torch.utils import synthetic
+
+    tile, grid = synthetic.k1_dense_tile(device), synthetic.k1_grid(device)
+    pf, st, p = synthetic.k3_ragged(device)
+    starts = grid[0][3]
+    log(f"synthetic inputs: K1 one tile of {int(tile[0][3][-1])} pairs; K1 {grid[0][4]}^2 tiles "
+        f"of 64, depth only, {int(starts[-1])} pairs, {int((starts[1:] == starts[:-1]).sum())} "
+        f"empty tiles; K3 N = {pf.shape[1]} slots (N % 32 = {pf.shape[1] % 32}), p = {p}")
+    return {"raster_tiles": [tile, grid], "pack_shade_rows": [((pf, st, p), {})]}
 
 
 def k11_calls(real_calls):
@@ -1163,7 +1193,8 @@ def main() -> int:
         **compare_kernels(k13_calls(qreal_calls), "K13 on K8's penumbra rows", ("pcf_resolve",),
                           timed=("pcf_resolve",)),
     }
-    cmps = entry_cmps + [quant, tex, full, timing]
+    synth = compare_kernels(synthetic_calls(dev), "synthetic", ("raster_tiles", "pack_shade_rows"))
+    cmps = entry_cmps + [quant, tex, full, timing, synth]
     library = library_times(freal_calls, lut_calls)
     launches = {**counts, **{k: qcounts[k] for k in own},
                 "tile_tap_resolve": tcounts["tile_tap_resolve"],

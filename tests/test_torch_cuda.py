@@ -1,5 +1,6 @@
 """arctic_tpu_torch on the card: the eleven CUDA kernels against their
-plain torch versions, and the entry frame, on the default path, on the
+plain torch versions (K1 and K3 also on the synthetic inputs of
+utils/synthetic.py), and the entry frame, on the default path, on the
 quantised PCF path (pcf_row_cap), on the textured path (the tile atlas,
 forced with tile_threshold_texels=0) and on the full-stack shade-row route
 (a Geometry without slot_static_rows: K10 in place of K3), against the CPU
@@ -31,7 +32,7 @@ from arctic_tpu_torch.io.build import build_buffers
 from arctic_tpu_torch.io.procedural import cornell_like_scene
 from arctic_tpu_torch.models import pipeline
 from arctic_tpu_torch.ops import raster_tiles, sampling, shadow
-from arctic_tpu_torch.utils import kernels
+from arctic_tpu_torch.utils import kernels, synthetic
 
 pytestmark = pytest.mark.cuda
 
@@ -257,6 +258,66 @@ def test_new_kernels_equal_plain_on_random_inputs(cuda, name):
     cpu = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
     assert fn.launches == 1  # the plain versions launch nothing
     assert _same(got, want) and _same(got.cpu(), cpu)
+
+
+def _synthetic_case(name, device):
+    """K1's and K3's synthetic inputs (utils/synthetic.py), as chip_smoke's
+    phase 5 makes them."""
+    if name == "k1_dense_tile":
+        return raster_tiles.raster_tiles, *synthetic.k1_dense_tile(device)
+    if name == "k1_dense_tile_scalar_rows":  # lane0 % 4 != 0: the scalar row load
+        return raster_tiles.raster_tiles, *synthetic.k1_dense_tile(device, lanes=16, lane0=3)
+    if name == "k1_grid":
+        return raster_tiles.raster_tiles, *synthetic.k1_grid(device)
+    return raster_tiles.pack_shade_rows, synthetic.k3_ragged(device), {}
+
+
+@pytest.mark.parametrize("name", ["k1_dense_tile", "k1_dense_tile_scalar_rows", "k1_grid",
+                                  "k3_ragged"])
+def test_redesigned_kernels_equal_plain_on_synthetic_inputs(cuda, name):
+    """K1 on a 20,480-pair tile (duplicates and equal-z ties inside a
+    chunk and across chunk boundaries, slivers, z = +-0, NaN and inf
+    planes) and on a
+    depth-only 4000^2 grid of the same planes; K3 on a slot count that is
+    not a multiple of its 32-slot block: bit-equal to the plain versions,
+    one launch each."""
+    fn, args, kw = _synthetic_case(name, cuda)
+    kernels.reset_launch_counts()
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == 1
+    want = fn.plain(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == b.dtype and a.shape == b.shape and _same(a, b)
+
+
+# (tile_h, tile_w, depth_only): the sub-tile and its warp rectangles K1
+# derives from the tile's sides — one 16x16 block, 16x16 sub-tiles of
+# square, wide and tall tiles (a side of 48), 64x4 sub-tiles of a 12x64 tile,
+# one 32x8 block of 8x4 rectangles, 128x2 sub-tiles of 16x2 rectangles.
+TILE_SHAPES = [(16, 16, False), (32, 32, False), (16, 64, False), (48, 16, False),
+               (12, 64, False), (8, 32, True), (2, 128, True), (64, 64, True)]
+
+
+@pytest.mark.parametrize("tile_h,tile_w,depth_only", TILE_SHAPES)
+def test_k1_equals_plain_at_every_tile_shape(cuda, tile_h, tile_w, depth_only):
+    """K1 on a 3 x 2 grid of tile_h x tile_w tiles (utils/synthetic.k1_tiles:
+    a 2,000-pair tile, an empty one, sparse ones) is bit-equal to its plain
+    version, in one launch: every pixel written once, at its own place."""
+    args, kw = synthetic.k1_tiles(cuda, tile_h, tile_w, depth_only)
+    kernels.reset_launch_counts()
+    got = raster_tiles.raster_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    assert raster_tiles.raster_tiles.launches == 1
+    want = raster_tiles.raster_tiles_plain(*args, **kw)
+    assert got[0].shape == (2 * tile_h, 3 * tile_w) and _same(got[0], want[0])
+    assert (got[1] is None) == depth_only
+    if not depth_only:
+        assert torch.equal(got[1], want[1])
 
 
 def test_new_wrappers_raise_on_bad_cuda_input(cuda):
