@@ -52,6 +52,11 @@ def quad_index(block_grid, ry, rx, rh, rw, u, v):
     return q, fx, fy
 
 
+# The quad widths K6 takes (one kernel instantiation each): a multiple of 4
+# with c4/4 texture channels and 4 env channels in the 16 output planes.
+C4_WIDTHS = tuple(range(4, 49, 4))
+
+
 def tap_resolve_plain(table, idx, tq, eq, tfx, tfy, efx, efy, c4: int):
     """Plain torch K6: gather row ``table[idx]``, widen to f32, take the
     texture quad at lanes [c4*tq, +c4) and the env quad at [16*eq, +16),
@@ -86,18 +91,22 @@ def tap_resolve(table, idx, tq, eq, tfx, tfy, efx, efy, c4: int):
     table: (R, 128) bf16 [packed material quads; env quads]; idx: (n,) i32
     table rows; tq: (n,) i32 quad within the row (q % per); eq: (n,) i32 env
     quad within the row (q % 8); tfx/tfy/efx/efy: (n,) f32 bilinear
-    fractions. Returns (16, n) f32: [0, c4/4) texture channels,
-    [c4/4, c4/4 + 4) env RGBA, zero after."""
+    fractions; c4 in {4, 8, ..., 48}. Returns (16, n) f32: [0, c4/4)
+    texture channels, [c4/4, c4/4 + 4) env RGBA, zero after. On the card
+    the table must be contiguous and 16-byte aligned (the kernel reads its
+    rows with 16-byte loads)."""
     if not table.is_cuda:
         return tap_resolve_plain(table, idx, tq, eq, tfx, tfy, efx, efy, c4)
     n = idx.shape[0]
     kernels.check_cuda(table, "table", torch.bfloat16, (table.shape[0], 128))
+    if table.data_ptr() % 16:
+        raise ValueError("table: expected a 16-byte aligned tensor")
     for name, t in (("idx", idx), ("tq", tq), ("eq", eq)):
         kernels.check_cuda(t, name, torch.int32, (n,))
     for name, t in (("tfx", tfx), ("tfy", tfy), ("efx", efx), ("efy", efy)):
         kernels.check_cuda(t, name, torch.float32, (n,))
-    if c4 % 4 or c4 // 4 + 4 > 16:
-        raise ValueError(f"c4={c4}: need a multiple of 4 with c4/4 + 4 <= 16")
+    if c4 not in C4_WIDTHS:
+        raise ValueError(f"c4={c4}: need a multiple of 4 with 4 <= c4 and c4/4 + 4 <= 16")
     out = torch.empty((16, n), dtype=torch.float32, device=table.device)
     kernels.launch("arctic_tap_resolve", table, idx, tq, eq, tfx, tfy, efx, efy, n, c4, out)
     tap_resolve.launches += 1

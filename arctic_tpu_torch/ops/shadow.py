@@ -396,8 +396,9 @@ def pcf_eval_plain(lut, order, rows_used, start_y, start_x, z, lx, ly, offsets):
 def pcf_eval(lut, order, rows_used, start_y, start_x, z, lx, ly, offsets):
     """K8: the raw 25-tap count of every pixel of the listed rows.
 
-    lut: (S + 4, pitch) u16 window table; order: (n,) i32 rows of the
-    (R, 128) planes start_y / start_x (i32, padded window origin in
+    lut: (S + 4, pitch) u16 window table (on the card: 8-byte aligned, the
+    pitch a multiple of 4, as ``lut_pitch`` makes it); order: (n,) i32 rows
+    of the (R, 128) planes start_y / start_x (i32, padded window origin in
     [0, S]), z, lx, ly (f32); rows_used: (1,) i32 device tensor, rows of
     ``order`` past it are written as 0; offsets: tap_offsets(S). Returns
     (n, 128) f32 counts (the /25 happens outside, as in the JAX package)."""
@@ -406,6 +407,12 @@ def pcf_eval(lut, order, rows_used, start_y, start_x, z, lx, ly, offsets):
     kernels.check_cuda(lut, "lut", torch.uint16)
     if lut.dim() != 2 or lut.shape[1] < lut.shape[0]:
         raise ValueError(f"lut: expected an (S + 4, pitch) table, got {tuple(lut.shape)}")
+    if lut.shape[1] % 4:  # the kernel reads a window row as 8-byte words
+        raise ValueError(f"lut: expected a pitch that is a multiple of 4, got {lut.shape[1]}")
+    if lut.data_ptr() % 8:
+        raise ValueError("lut: expected an 8-byte aligned table")
+    if lut.numel() >= 2**31 or start_y.numel() >= 2**31:
+        raise ValueError("pcf_eval: the kernel indexes the table and the planes with 32-bit ints")
     n = order.shape[0]
     kernels.check_cuda(order, "order", torch.int32, (n,))
     kernels.check_cuda(rows_used, "rows_used", torch.int32, (1,))
@@ -423,6 +430,14 @@ def pcf_eval(lut, order, rows_used, start_y, start_x, z, lx, ly, offsets):
     )
     pcf_eval.launches += 1
     return out
+
+
+def pcf_eval_stride(device) -> int:
+    """How far apart in ``order`` the rows one thread of K8 takes lie on
+    ``device``'s card (the rows its full grid takes in one pass; a shorter
+    list gets fewer blocks): tests and chip_smoke put rows_used around its
+    multiples."""
+    return kernels.query_int("arctic_pcf_eval_stride", device)
 
 
 # --------------------------------------------------------------------------

@@ -55,6 +55,10 @@ _SIGNATURES = {
     "arctic_window_lut": (_P, _I, _I, _I, _P, _P),
     "arctic_pcf_resolve": (_P, _I, _P, _P, _I, _P, _P),
 }
+# C signatures of the queries (no stream); each returns its cudaError_t.
+_QUERIES = {
+    "arctic_pcf_eval_stride": (_P,),
+}
 
 # Every registered kernel wrapper, in registration order.
 KERNELS: list = []
@@ -125,7 +129,7 @@ def _raise_on_failure(cmd, returncode: int, stderr: str) -> None:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     lib = ctypes.CDLL(str(build_library()))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in (_SIGNATURES | _QUERIES).items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
@@ -146,9 +150,24 @@ def launch(name: str, *args) -> None:
     lib = library()
     with torch.cuda.device(device):
         code = getattr(lib, name)(*conv, torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(lib, f"{name} launch", code)
+
+
+def query_int(name: str, device) -> int:
+    """The int that query ``name`` (``int name(int* out)``) gives on
+    ``device``; raise on a CUDA error."""
+    out = ctypes.c_int(0)
+    lib = library()
+    with torch.cuda.device(device):
+        code = getattr(lib, name)(ctypes.byref(out))
+    _raise_on_error(lib, name, code)
+    return out.value
+
+
+def _raise_on_error(lib, what: str, code: int) -> None:
     if code != 0:
         msg = lib.arctic_cuda_error_string(code).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
 
 
 def kernel(name: str, source: str, replaces: str, plain):

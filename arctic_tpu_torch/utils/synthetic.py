@@ -17,12 +17,30 @@ the tile's sides.
 
 K3: random planes (NaN and +-inf included) over a slot count that is not a
 multiple of the kernel's 32-slot block.
+
+K6: at every quad width the wrapper takes (c4 = 4, 8, ..., 48), every
+texture quad (tq in [0, 128 // c4)) and env quad (eq in [0, 8)), over bf16
+rows that hold NaN, +-Inf, +-0 and subnormal patterns, for a pixel count
+that is not a multiple of any block size.
+
+K8: a 60 x 60 map, whose table pitch is s + 4 = 64 (an aligned word past
+x0 + 3 would leave the last row), window origins at every x0 % 4 and at
+x0 = s and y0 = s, tap centres inside [1, 2) (the kernel's fast selects)
+and outside it (the general ones, every branch of the 3-way selects), a
+row list with repeated and out-of-order rows
+whose length is odd (not a multiple of the rows a block takes side by
+side), and rows_used at 0, below the list's length and equal to it. Given
+the stride of the kernel's grid (``shadow.pcf_eval_stride`` on the card),
+``k8_strided`` lists enough rows for several passes of the whole grid, with
+rows_used just below and just above a multiple of the stride.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from arctic_tpu_torch.ops import sampling, shadow
 
 TILE = 64
 GRID_SIZE = 4000
@@ -201,3 +219,120 @@ def k3_ragged(device, seed: int = 0, n: int | None = None):
     p = int(rng.integers(n // 2, n))
     t = torch.from_numpy(planes).to(device)
     return t[:48].contiguous(), t[48:].contiguous(), p
+
+
+# K6: table rows, pixels, and the bf16 bit patterns planted in the rows:
+# quiet and signalling NaNs, +-Inf, +-0, subnormals, the largest finite.
+K6_ROWS = 48
+K6_PIXELS = 3001
+K6_SPECIALS = (0x7FC0, 0xFFC1, 0x7F81, 0x7F80, 0xFF80, 0x0000, 0x8000, 0x0001, 0x807F,
+               0x0040, 0x7F7F, 0xFF7F)
+K6_WIDTHS = sampling.C4_WIDTHS  # every quad width the wrapper takes
+
+
+def k6_inputs(device, c4: int, seed: int = 0):
+    """K6's (args, kwargs) at quad width c4: a (K6_ROWS, 128) bf16 table of
+    values in [-4, 4) with the K6_SPECIALS planted in every row (several
+    lanes each), and K6_PIXELS pixels that take every (row, tq, eq) in turn
+    before random ones; fractions include 0 and 1."""
+    rng = np.random.default_rng(seed + c4)
+    vals = rng.uniform(-4.0, 4.0, (K6_ROWS, 128)).astype(np.float32)
+    bits = (vals.view(np.uint32) >> 16).astype(np.uint16)
+    for r in range(K6_ROWS):
+        lanes = rng.choice(128, 3 * len(K6_SPECIALS), replace=False)
+        bits[r, lanes] = np.tile(np.array(K6_SPECIALS, np.uint16), 3)
+    per = 128 // c4
+    n = K6_PIXELS
+    k = np.arange(n)
+    sweep = k < K6_ROWS * max(per, 8)  # every row with every tq and every eq
+    idx = np.where(sweep, k % K6_ROWS, rng.integers(0, K6_ROWS, n)).astype(np.int32)
+    tq = np.where(sweep, (k // K6_ROWS) % per, rng.integers(0, per, n)).astype(np.int32)
+    eq = np.where(sweep, (k // K6_ROWS) % 8, rng.integers(0, 8, n)).astype(np.int32)
+    fr = rng.uniform(0.0, 1.0, (4, n)).astype(np.float32)
+    fr[:, :8] = np.array([0.0, 1.0] * 4, np.float32)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    table = dev(bits.view(np.int16)).view(torch.bfloat16)
+    return (table, dev(idx), dev(tq), dev(eq), *(dev(f) for f in fr)), {"c4": c4}
+
+
+# K8: the map side (pitch = s + 4), the (R, 128) planes' row count, the
+# listed rows (odd: no multiple of a power-of-two rows-per-block) and the
+# rows_used values held.
+K8_SIDE = 60
+K8_PLANE_ROWS = 40
+K8_ORDER_LEN = 37
+K8_ROWS_USED = (0, 20, K8_ORDER_LEN)
+# The strided cases: passes of the grid the list covers, and the
+# (pass, +-1) rows_used points around a multiple of the stride.
+K8_PASSES = 8
+K8_STRIDED = ("minus", "plus", "all")
+
+
+def k8_strided(device, stride: int, case: str, seed: int = 0):
+    """K8's (args, kwargs) for a grid that takes ``stride`` rows a pass: a
+    list of K8_PASSES * stride + 5 rows (repeats, out of order) with
+    rows_used at 3 * stride - 1 ("minus"), 6 * stride + 1 ("plus") or the
+    list's length ("all"), on k8_inputs' map and planes."""
+    n = K8_PASSES * stride + 5
+    used = {"minus": 3 * stride - 1, "plus": 6 * stride + 1, "all": n}[case]
+    return k8_inputs(device, used, seed, order_len=n)
+
+
+def k8_inputs(device, rows_used: int, seed: int = 0, order_len: int = K8_ORDER_LEN):
+    """K8's (args, kwargs) on a K8_SIDE^2 map: the (s + 4, 64) u16 table of
+    a smooth depth map with noise (0 and 65535 included), window origins
+    with every x0 % 4 and the last column and row (x0 = s, y0 = s), z near
+    the window's depth so that counts spread over 0..25, lx / ly in [1, 2)
+    with some within a tap offset of 1 or 2, and some outside [1, 2) (every
+    3-way select branch), an ``order_len`` row list with repeats, out of
+    order (K8_ORDER_LEN rows: a permutation with three rows repeated; any
+    other length: uniform draws), and ``rows_used``."""
+    s = K8_SIDE
+    pitch = shadow.lut_pitch(s)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(s + 4), np.arange(pitch), indexing="ij")
+    depth = 0.5 + 0.3 * np.sin(yy / 7.0) * np.cos(xx / 5.0) + rng.normal(0, 0.02, yy.shape)
+    lut = np.floor(np.clip(depth * 65535 + 0.5, 0, 65535)).astype(np.uint16)
+    lut[0, :3] = (0, 65535, 0)
+    r = K8_PLANE_ROWS
+    y0 = rng.integers(0, s + 1, (r, 128))
+    x0 = rng.integers(0, s + 1, (r, 128))
+    x0[:, :4] = s - np.arange(4)  # x0 = s, and every x0 % 4
+    y0[:, :2] = s
+    x0[:, 4] = s
+    lx = rng.uniform(1.0, 2.0, (r, 128))
+    ly = rng.uniform(1.0, 2.0, (r, 128))
+    edge = float(np.float32(2 * 0.0001 * s))  # the outer tap offset, in texels
+    near = rng.uniform(0.0, edge, (2, r, 128))
+    lx[:, 8:40:2] = 1.0 + near[0][:, 8:40:2]
+    lx[:, 9:40:2] = 2.0 - near[0][:, 9:40:2]
+    ly[:, 40:72:2] = 1.0 + near[1][:, 40:72:2]
+    ly[:, 41:72:2] = 2.0 - near[1][:, 41:72:2]
+    lx[:, 5], ly[:, 5] = 1.0, 1.0
+    lx = np.minimum(lx, np.nextafter(np.float32(2.0), np.float32(0.0))).astype(np.float32)
+    ly = np.minimum(ly, np.nextafter(np.float32(2.0), np.float32(0.0))).astype(np.float32)
+    # Tap centres outside [1, 2), whose taps leave texels 0..2 (the selects'
+    # other branches): every fifth row throughout, and one pixel of one warp
+    # (32 pixels) in every fifth row after it.
+    lx[4::5] = rng.uniform(-0.5, 3.5, lx[4::5].shape)
+    ly[4::5] = rng.uniform(-0.5, 3.5, ly[4::5].shape)
+    ly[0::5, 100] = 2.5
+    win = lut[y0 + 1, x0 + 1].astype(np.float32) / 65535.0
+    z = (win + rng.normal(0, 0.01, win.shape)).astype(np.float32)
+    if order_len == K8_ORDER_LEN:
+        order = rng.permutation(r)[:order_len].astype(np.int32)
+        order[[3, 10, 30]] = order[[2, 0, 29]]  # repeated rows
+    else:
+        order = rng.integers(0, r, order_len).astype(np.int32)
+    offsets = shadow.tap_offsets(s)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    args = (dev(lut.view(np.int16)).view(torch.uint16), dev(order),
+            dev(np.array([rows_used], np.int32)), dev(y0.astype(np.int32)),
+            dev(x0.astype(np.int32)), dev(z), dev(lx), dev(ly), offsets)
+    return args, {}

@@ -72,11 +72,19 @@ raises on failure (exit code != 0):
    library call that computes their function. K11 runs on the default
    frame's own K3 planes (split slot-major / tri-major) and must equal K3's
    table; K13 on the quantised frame 0's K7 table and listed penumbra rows,
-   and _tap_count over its planes must equal K8's counts. K1 and K3 also
-   run on utils/synthetic.py's inputs (a 20,480-pair tile with ties,
-   duplicates, slivers, z = +-0 and NaN planes; the same planes on a
+   and _tap_count over its planes must equal K8's counts. K1, K3, K6 and
+   K8 also run on utils/synthetic.py's inputs (a 20,480-pair tile with
+   ties, duplicates, slivers, z = +-0 and NaN planes; the same planes on a
    depth-only 4000^2 grid; a slot count that is not a multiple of K3's
-   block), bit-exact against their plain versions.
+   block; K6 at every quad width it takes over NaN / Inf / +-0 / subnormal
+   bf16 lanes; K8 on a map whose table pitch is s + 4, windows at the last
+   column and row, rows_used at 0, below and at the list's length, and a
+   list of several passes of K8's grid with rows_used just below and just
+   above a multiple of its stride),
+   bit-exact against their plain versions. The real-size quad width and
+   K8's live / listed rows are printed, and the share of the quantised
+   frame 0's warps that take K8's fast selects, with K8's time on the same
+   inputs when no warp takes them.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Frames are saved under build/chip_smoke/ as
@@ -878,6 +886,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` launches: the device first
+    spins (about 50 ms) while the host queues every launch, so the CUDA
+    events time the device's work alone and not a wrapper's host time
+    (which cuda_ms includes where it is the longer). Raises if the host had
+    not queued them when the spin ended."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if start.query():
+        raise RuntimeError("device_ms: the device reached the launches before the host queued them")
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _distinct(idx, size: int) -> int:
     """How many distinct values in [0, size) the index tensor holds."""
     import torch
@@ -917,10 +948,19 @@ def work(name, args, kw):
         nbytes = 4 * hw + 512 * _distinct(ibuf[cov], rows.shape[0]) + 4 * 64 * hw
         return nbytes, 137 * int(cov.sum())
     if name == "tap_resolve":
-        table, idx = args[:2]
+        table, idx, tq, eq = args[:4]
         n = idx.numel()
         c4 = kw["c4"]
-        return 4 * 7 * n + 256 * _distinct(idx, table.shape[0]) + 4 * 16 * n, 9 * (c4 // 4 + 4) * n
+        # 7 per-pixel inputs, each 2-byte lane of the table that a pixel's
+        # texture quad (c4 lanes) or env quad (16 lanes) covers, once, and
+        # 16 f32 planes out
+        per = 128 // c4
+        lanes = torch.zeros(table.numel(), dtype=torch.bool, device=idx.device)
+        for key, k, width in ((idx.long() * per + tq, per, c4), (idx.long() * 8 + eq, 8, 16)):
+            key = torch.unique(key)
+            first = key // k * 128 + key % k * width
+            lanes[first[:, None] + torch.arange(width, device=key.device)] = True
+        return 4 * 7 * n + 2 * int(lanes.sum()) + 4 * 16 * n, 9 * (c4 // 4 + 4) * n
     if name == "tile_tap_resolve":
         table, idx = args[:2]
         n = idx.numel()
@@ -1025,8 +1065,12 @@ def compare_kernels(calls, label: str, names, timed=()):
 def synthetic_calls(device) -> dict:
     """K1 on utils/synthetic.py's 20,480-pair tile (camera layout, ibuf) and
     on the depth-only 4000^2 grid of the same planes, K3 on a slot count
-    that is not a multiple of its 32-slot block: the calls phase 5 holds
-    bit-exact against the plain versions."""
+    that is not a multiple of its 32-slot block, K6 at every quad width,
+    K8 on the pitch = s + 4 map at three rows_used and on lists of several
+    passes of its grid (rows_used just below and above a multiple of its
+    stride, and the whole list): the calls phase 5 holds bit-exact against
+    the plain versions."""
+    from arctic_tpu_torch.ops import shadow
     from arctic_tpu_torch.utils import synthetic
 
     tile, grid = synthetic.k1_dense_tile(device), synthetic.k1_grid(device)
@@ -1035,7 +1079,58 @@ def synthetic_calls(device) -> dict:
     log(f"synthetic inputs: K1 one tile of {int(tile[0][3][-1])} pairs; K1 {grid[0][4]}^2 tiles "
         f"of 64, depth only, {int(starts[-1])} pairs, {int((starts[1:] == starts[:-1]).sum())} "
         f"empty tiles; K3 N = {pf.shape[1]} slots (N % 32 = {pf.shape[1] % 32}), p = {p}")
-    return {"raster_tiles": [tile, grid], "pack_shade_rows": [((pf, st, p), {})]}
+    k6 = [synthetic.k6_inputs(device, c4) for c4 in synthetic.K6_WIDTHS]
+    k8 = [synthetic.k8_inputs(device, used) for used in synthetic.K8_ROWS_USED]
+    stride = shadow.pcf_eval_stride(device)
+    strided = [synthetic.k8_strided(device, stride, case) for case in synthetic.K8_STRIDED]
+    lut = k8[0][0][0]
+    log(f"synthetic inputs: K6 c4 = {', '.join(str(c4) for c4 in synthetic.K6_WIDTHS)} over "
+        f"{synthetic.K6_PIXELS} pixels of a {synthetic.K6_ROWS}-row table; K8 s = "
+        f"{synthetic.K8_SIDE}, table {tuple(lut.shape)}, {synthetic.K8_ORDER_LEN} listed rows, "
+        f"rows_used {', '.join(str(u) for u in synthetic.K8_ROWS_USED)}; K8 grid stride "
+        f"{stride} rows, {strided[0][0][1].shape[0]} listed rows, rows_used "
+        f"{', '.join(str(int(args[2][0])) for args, _ in strided)}")
+    k8 += strided
+    return {"raster_tiles": [tile, grid], "pack_shade_rows": [((pf, st, p), {})],
+            "tap_resolve": k6, "pcf_eval": k8}
+
+
+def k8_vote(qreal_calls) -> None:
+    """K8's warp vote on the quantised frame 0's own inputs: the share of
+    live warps (32 pixels of a listed row) whose taps all lie where its fast
+    selects take them, and K8's time (cuda_ms, and device_ms: the vote saves
+    device time, which the wrapper's host time can hide) on these inputs and
+    on the same inputs with lanes 0, 32, 64 and 96 of every plane row moved
+    to lx = -1, so that no warp takes them (held bit-exact against the plain
+    version as well)."""
+    import torch
+
+    from arctic_tpu_torch.ops import shadow
+
+    ((args, kw),) = qreal_calls["pcf_eval"]
+    order, rows_used, lx, ly, offsets = args[1], args[2], args[6], args[7], args[8]
+    live = order[: int(rows_used[0])].long()
+    off = torch.tensor(offsets, dtype=torch.float32, device=lx.device)
+    ascending = all(a <= b for a, b in zip(offsets, offsets[1:]))
+    fast = torch.full((live.numel(), 128), ascending, dtype=torch.bool, device=lx.device)
+    for plane in (lx, ly):
+        f = torch.floor(plane[live][..., None] + off)  # the f32 add and floor of the taps
+        fast &= (f[..., 0] >= 0) & (f[..., 2] == 1) & (f[..., 4] <= 2)
+    share = fast.view(-1, 32).all(1).double().mean().item()
+    lx_off = lx.clone()
+    lx_off[:, ::32] = -1.0
+    general = (*args[:6], lx_off, *args[7:])
+    if not torch.equal(shadow.pcf_eval(*general, **kw), shadow.pcf_eval.plain(*general, **kw)):
+        raise RuntimeError("K8 with no warp on the fast selects differs from its plain version")
+    times = {
+        inputs: (cuda_ms(lambda: shadow.pcf_eval(*a, **kw), 20),
+                 device_ms(lambda: shadow.pcf_eval(*a, **kw), 20))
+        for inputs, a in (("voted", args), ("general", general))
+    }
+    log(f"K8 vote, quant real-size frame 0: {share:.4%} of {fast.numel() // 32} live warps take the "
+        f"fast selects; K8 {times['voted'][0]:.4f} ms (device {times['voted'][1]:.4f}), with no "
+        f"warp on them {times['general'][0]:.4f} ms (device {times['general'][1]:.4f}; bit-exact "
+        f"vs plain)")
 
 
 def k11_calls(real_calls):
@@ -1193,7 +1288,13 @@ def main() -> int:
         **compare_kernels(k13_calls(qreal_calls), "K13 on K8's penumbra rows", ("pcf_resolve",),
                           timed=("pcf_resolve",)),
     }
-    synth = compare_kernels(synthetic_calls(dev), "synthetic", ("raster_tiles", "pack_shade_rows"))
+    synth = compare_kernels(synthetic_calls(dev), "synthetic",
+                            ("raster_tiles", "pack_shade_rows", "tap_resolve", "pcf_eval"))
+    (_, k6_kw), = real_calls["tap_resolve"]
+    (k8_args, _), = qreal_calls["pcf_eval"]
+    log(f"real size: K6 quad width c4 = {k6_kw['c4']}; K8 {int(k8_args[2][0])} live of "
+        f"{k8_args[1].shape[0]} listed rows")
+    k8_vote(qreal_calls)
     cmps = entry_cmps + [quant, tex, full, timing, synth]
     library = library_times(freal_calls, lut_calls)
     launches = {**counts, **{k: qcounts[k] for k in own},

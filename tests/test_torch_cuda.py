@@ -1,5 +1,5 @@
 """arctic_tpu_torch on the card: the eleven CUDA kernels against their
-plain torch versions (K1 and K3 also on the synthetic inputs of
+plain torch versions (K1, K3, K6 and K8 also on the synthetic inputs of
 utils/synthetic.py), and the entry frame, on the default path, on the
 quantised PCF path (pcf_row_cap), on the textured path (the tile atlas,
 forced with tile_threshold_texels=0) and on the full-stack shade-row route
@@ -318,6 +318,87 @@ def test_k1_equals_plain_at_every_tile_shape(cuda, tile_h, tile_w, depth_only):
     assert (got[1] is None) == depth_only
     if not depth_only:
         assert torch.equal(got[1], want[1])
+
+
+K6_K8_CASES = ([f"k6_c4_{c4}" for c4 in synthetic.K6_WIDTHS]
+               + [f"k8_rows_used_{u}" for u in synthetic.K8_ROWS_USED]
+               + [f"k8_strided_{case}" for case in synthetic.K8_STRIDED])
+
+
+@pytest.mark.parametrize("case", K6_K8_CASES)
+def test_k6_k8_equal_plain_on_synthetic_inputs(cuda, case):
+    """K6 at every quad width it takes (every tq and eq, NaN / Inf / +-0 /
+    subnormal bf16 lanes, a ragged pixel count) and K8 on the s = 60 map
+    (pitch s + 4, windows at the last column and row and at every x0 % 4,
+    repeated and out-of-order rows, rows_used at 0, below and at the list's
+    length, and a list of several passes of K8's grid with rows_used just
+    below and just above a multiple of its stride): bit-equal to the plain
+    versions, NaN positions included, in one launch; on the CPU the
+    wrappers take the plain versions."""
+    kind, value = case.split("_")[0], case.rsplit("_", 1)[1]
+    if kind == "k6":
+        fn, (args, kw) = sampling.tap_resolve, synthetic.k6_inputs(cuda, int(value))
+    elif case.startswith("k8_strided"):
+        stride = shadow.pcf_eval_stride(cuda)
+        fn, (args, kw) = shadow.pcf_eval, synthetic.k8_strided(cuda, stride, value)
+        assert args[1].shape[0] > synthetic.K8_PASSES * stride
+    else:
+        fn, (args, kw) = shadow.pcf_eval, synthetic.k8_inputs(cuda, int(value))
+    kernels.reset_launch_counts()
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == 1
+    want = fn.plain(*args, **kw)
+    cpu = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args), **kw)
+    assert fn.launches == 1  # the plain versions launch nothing
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _same(got, want) and _same(got.cpu(), cpu)
+
+
+def test_kernels_launch_on_the_current_stream(cuda):
+    """A wrapper launches on PyTorch's current stream: on a side stream, K6
+    and K8 read an input that the same stream fills only after a device
+    spin, and still equal their plain versions on the filled input (on
+    another stream they would read the zeros before it)."""
+    side = torch.cuda.Stream(cuda)
+    for fn, (args, kw), at in ((sampling.tap_resolve, synthetic.k6_inputs(cuda, 32), 4),
+                               (shadow.pcf_eval, synthetic.k8_inputs(cuda, synthetic.K8_ORDER_LEN), 6)):
+        want = fn.plain(*args, **kw)
+        late = torch.zeros_like(args[at])
+        torch.cuda.synchronize()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(10_000_000)
+            late.copy_(args[at])
+            got = fn(*args[:at], late, *args[at + 1:], **kw)
+        side.synchronize()
+        assert _same(got, want)
+        assert not _same(fn.plain(*args[:at], torch.zeros_like(late), *args[at + 1:], **kw), want)
+
+
+def test_k6_k8_wrappers_raise_on_layouts_their_loads_do_not_take(cuda):
+    """K6 reads its rows with 16-byte loads, K8 its windows with 8-byte
+    words: a misaligned or non-contiguous table raises, nothing falls back."""
+    args, kw = synthetic.k6_inputs(cuda, 16)
+    table = args[0]
+    flat = torch.zeros(table.numel() + 4, dtype=torch.bfloat16, device=cuda)
+    flat[4:] = table.reshape(-1)
+    shifted = flat[4:].view(table.shape)  # contiguous, 8 bytes off a 16-byte boundary
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sampling.tap_resolve(shifted, *args[1:], **kw)
+    wide = torch.zeros((table.shape[0], 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sampling.tap_resolve(wide[:, :128], *args[1:], **kw)
+    with pytest.raises(ValueError, match="c4=0"):
+        sampling.tap_resolve(table, *args[1:], c4=0)
+    args, _ = synthetic.k8_inputs(cuda, synthetic.K8_ORDER_LEN)
+    lut = args[0]
+    odd = torch.zeros((lut.shape[0], lut.shape[1] + 2), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        shadow.pcf_eval(odd.view(torch.uint16), *args[1:])
+    flat = torch.zeros(lut.numel() + 2, dtype=torch.int16, device=cuda).view(torch.uint16)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        shadow.pcf_eval(flat[2:].view(lut.shape), *args[1:])
 
 
 def test_new_wrappers_raise_on_bad_cuda_input(cuda):

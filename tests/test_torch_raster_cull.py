@@ -13,10 +13,12 @@ must give the plain raster's zbuf and ibuf exactly.
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, seed, settings
-from hypothesis import strategies as st
 
-from arctic_tpu_torch.ops import raster_tiles
+pytest.importorskip("hypothesis")
+from hypothesis import given, seed, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+from arctic_tpu_torch.ops import raster_tiles  # noqa: E402
 from arctic_tpu_torch.utils import synthetic
 
 F32 = np.float32

@@ -82,7 +82,7 @@ def test_quad_index_exact():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("c4", [32, 16])
+@pytest.mark.parametrize("c4", [48, 32, 16])
 def test_k6_plain_matches_tap_resolve(c4):
     rng = np.random.default_rng(c4)
     p = 4096
