@@ -6,11 +6,15 @@ hand-written CUDA kernels where the JAX package wrote Pallas kernels.
 
 Layout mirrors the JAX package:
     core/     render config, maths, scene/settings dataclasses of tensors
-    io/       host scene build (numpy) -> tensors on a device
+    io/       glTF / GLB / OBJ / HDR / PNG load, GLB export, procedural
+              scenes; host scene build (numpy) -> tensors on a device
     ops/      raster, binning, cull, shadow, sampling, sky, PBR, tonemap;
               the kernel wrappers live beside their plain torch versions
     models/   the frame pipeline; the f64 golden oracle
-    utils/    the CUDA kernel loader, the JAX-package parameter bridge
+    utils/    the CUDA kernel loader, the JAX-package parameter bridge,
+              errors, frame stats and traces, state files
+    app/      the render CLI (python -m arctic_tpu_torch.app.cli render)
+              and the fly camera
     csrc/     CUDA C++ sources of the kernels
 
 Nothing here imports JAX or any module of ``arctic_tpu``: a machine with the

@@ -1,0 +1,236 @@
+"""CLI renderer — `arctic <scene>` (main.cpp:18-22) on one GPU; port of
+arctic_tpu/app/cli.py with the same ``render`` flags and defaults, plus
+``--device`` (default ``cuda``; ``--device cpu`` runs the kernels' plain
+torch versions).
+
+Examples:
+    python -m arctic_tpu_torch.app.cli render scene.glb --out frame.png
+    python -m arctic_tpu_torch.app.cli render --procedural sponza --width 1920 \
+        --height 1080 --tm aces --frames 60 --orbit --cache-sun
+    python -m arctic_tpu_torch.app.cli render scene.obj --camera 0,5,0,0,0
+
+The flags of paths the port does not have (--bruteforce, --ibl, --spot,
+--raytrace, --devices, --debug-checks) raise RenderError before anything
+is loaded or built.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import sys
+import time
+
+log = logging.getLogger("arctic")
+
+TM_NAMES = {"reinhard": 0, "exposure": 1, "aces": 2}
+
+# Flags of the JAX package's CLI whose paths are not ported, and where
+# each path stands; any of them set (true, non-empty, non-zero) raises.
+UNPORTED_FLAGS = {
+    "bruteforce": "ROADMAP Queue 1 item 4, the deferred and brute-force frame",
+    "ibl": "ROADMAP Queue 1 item 7, opt-ins",
+    "spot": "ROADMAP Queue 1 item 7, opt-ins",
+    "raytrace": "ROADMAP Queue 1 item 8, the ray-traced mode",
+    "devices": "ROADMAP Queue 1 item 9, sharding",
+    "debug_checks": "ROADMAP Queue 1 item 10, enable_debug_checks",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="arctic_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+    r = sub.add_parser("render", help="render one frame or an orbit sequence")
+    r.add_argument("scene", nargs="?", help="glTF/GLB/OBJ scene path")
+    r.add_argument("--procedural", choices=["cornell", "sponza"], help="use a built-in scene")
+    r.add_argument("--out", default="frame.png")
+    r.add_argument("--width", type=int, default=1280)  # app.hpp:20
+    r.add_argument("--height", type=int, default=720)  # app.hpp:21
+    r.add_argument("--shadow-size", type=int, default=4000)  # shadow_map_pass.hpp:23
+    # Settings flags default to None so --load-state can tell "explicitly
+    # passed" from "defaulted": saved tm / gamma / exposure survive a reload
+    # unless the command line overrides them.
+    r.add_argument("--tm", choices=list(TM_NAMES), default=None,
+                   help="tonemap method (default reinhard, or the --load-state value)")
+    r.add_argument("--gamma", type=float, default=None,
+                   help="gamma (default 2.2, or the --load-state value)")
+    r.add_argument("--exposure", type=float, default=None,
+                   help="exposure (default 1.0, or the --load-state value)")
+    r.add_argument("--camera",
+                   help="x,y,z,pitch,yaw (default 0,5,0,0,0); use --camera=-14,4,0,-8,0 "
+                   "for values starting with a minus sign")
+    r.add_argument("--env", help="equirect .hdr environment path")
+    r.add_argument("--frames", type=int, default=1, help="number of frames to render")
+    r.add_argument("--orbit", action="store_true", help="sweep yaw over the frames")
+    r.add_argument("--stats", action="store_true", help="print frame-time stats")
+    r.add_argument("--cache-sun", action="store_true",
+                   help="render the shadow map once and reuse it across frames "
+                   "(exact while sun and geometry are static, e.g. --orbit)")
+    r.add_argument("--load-state", help="load camera/lights/settings JSON")
+    r.add_argument("--save-state", help="write camera/lights/settings JSON after rendering")
+    r.add_argument("--config",
+                   help="JSON file of RenderConfig fields (tile sizes, pair capacity, "
+                   "pcf_row_cap, ...; the JAX package's field names)")
+    r.add_argument("--device", default="cuda",
+                   help="torch device of the scene buffers and the frame (default cuda)")
+    # Not ported: each raises RenderError (UNPORTED_FLAGS).
+    r.add_argument("--bruteforce", action="store_true", help="(not ported)")
+    r.add_argument("--devices", type=int, default=0, help="(not ported)")
+    r.add_argument("--raytrace", action="store_true", help="(not ported)")
+    r.add_argument("--ibl", action="store_true", help="(not ported)")
+    r.add_argument("--spot", action="append", default=[], metavar="X,Y,Z,R,G,B,AX,AY,AZ,IN,OUT",
+                   help="(not ported)")
+    r.add_argument("--debug-checks", action="store_true", help="(not ported)")
+    return p
+
+
+def cmd_render(args) -> int:
+    import torch
+
+    from arctic_tpu_torch.core.config import config_from_dict
+    from arctic_tpu_torch.core.scene import default_scene_params, default_settings
+    from arctic_tpu_torch.io.build import build_buffers
+    from arctic_tpu_torch.io.images import load_hdr, save_png
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils.errors import RenderError, render_guard
+    from arctic_tpu_torch.utils.profiling import FrameStats
+
+    for flag, where in UNPORTED_FLAGS.items():
+        if getattr(args, flag):
+            raise RenderError(f"--{flag.replace('_', '-')} takes a path the port does not "
+                              f"have ({where})")
+    overrides = {}
+    if args.config:
+        import json
+
+        with open(args.config) as f:
+            overrides = json.load(f)
+    config = config_from_dict(
+        dict(width=args.width, height=args.height, shadow_size=args.shadow_size, **overrides)
+    )
+    device = torch.device(args.device)
+
+    if args.procedural:
+        from arctic_tpu_torch.io import procedural
+
+        if args.procedural == "cornell":
+            meshes, objects, materials, env = procedural.cornell_like_scene()
+        else:
+            meshes, objects, materials, env = procedural.sponza_like_scene()
+        if args.env:
+            env = load_hdr(args.env)
+    elif args.scene:
+        from arctic_tpu_torch.io.load import load_scene_file
+
+        meshes, objects, materials, env = load_scene_file(args.scene, env_path=args.env)
+    else:
+        log.error("render: need a scene path or --procedural")
+        return 2
+
+    buffers = build_buffers(meshes, objects, materials, env, device=device)
+    log.info("scene: %d tris, %d objects, device=%s", buffers.geometry.num_tris,
+             len(objects), device)
+
+    params = default_scene_params(aspect=args.width / args.height)
+    settings = default_settings()
+    if args.load_state:
+        from arctic_tpu_torch.utils.serialize import load_state
+
+        params, settings = load_state(args.load_state)
+        params.camera = dataclasses.replace(
+            params.camera, aspect=torch.tensor(args.width / args.height, dtype=torch.float32)
+        )
+    if args.camera:
+        vals = [float(v) for v in args.camera.split(",")]
+        params.camera = dataclasses.replace(
+            params.camera,
+            eye=torch.tensor(vals[:3], dtype=torch.float32),
+            rotation=torch.tensor(vals[3:5], dtype=torch.float32),
+        )
+    # Explicitly passed flags override the loaded (or default) settings.
+    if args.tm is not None:
+        settings = dataclasses.replace(settings, tm_method=TM_NAMES[args.tm])
+    if args.gamma is not None:
+        settings = dataclasses.replace(settings, gamma=torch.tensor(args.gamma, dtype=torch.float32))
+    if args.exposure is not None:
+        settings = dataclasses.replace(
+            settings, exposure=torch.tensor(args.exposure, dtype=torch.float32)
+        )
+
+    # Size the pair buffers to the scene (binning's cost scales with the
+    # capacity, not the pairs), and shade the known light count.
+    config = pipeline.autotune_pair_caps(buffers, params, config)
+    config = dataclasses.replace(config, static_point_lights=params.point_lights.count)
+    log.info("pair caps: cam=%d shadow=%d", config.pair_cap_cam, config.pair_cap_shadow)
+
+    if args.cache_sun:
+        sun_cache, cache_stats = pipeline.make_sun_cache_builder(config, device)(buffers, params)
+        pipeline.check_stats({**cache_stats, "cam_pairs": 0, "cam_pair_cap": 1})
+        cached = pipeline.make_cached_renderer_stats(config, device)
+
+        def render_stats(b, p, s):
+            return cached(b, p, s, sun_cache)
+
+        log.info("sun cache built (shadow map reused per frame)")
+    else:
+        render_stats = pipeline.make_renderer_stats(config, device)
+
+    scene_desc = args.scene or f"procedural:{args.procedural}"
+    guard_desc = (f"scene={scene_desc} {config.width}x{config.height} "
+                  f"shadow={config.shadow_size} tris={buffers.geometry.num_tris} device={device}")
+
+    # The first frame's stats: did a pair or penumbra row buffer overflow
+    # (dropped fragments)?
+    with render_guard(guard_desc):
+        _, rstats = render_stats(buffers, params, settings)
+        rstats = {k: int(v) for k, v in rstats.items()}
+    for name, count, cap in (("cam pass", "cam_pairs", "cam_pair_cap"),
+                             ("shadow pass", "shadow_pairs", "shadow_pair_cap"),
+                             ("PCF", "pcf_rows", "pcf_row_cap")):
+        if rstats[count] > rstats[cap]:
+            log.warning("%s overflowed its buffer (%d > %d): the frame is wrong — raise "
+                        "pairs_per_tri / pair_reserve / pcf_row_cap via --config",
+                        name, rstats[count], rstats[cap])
+
+    stats = FrameStats()
+    img = None
+    for i in range(args.frames):
+        p = params
+        if args.orbit and args.frames > 1:
+            rot = params.camera.rotation + torch.tensor([0.0, 360.0 * i / args.frames])
+            p = dataclasses.replace(params, camera=dataclasses.replace(params.camera, rotation=rot))
+        # Time only the render and the device sync: PNG encoding is not
+        # frame time.
+        t0 = time.perf_counter()
+        with render_guard(guard_desc):
+            img, _ = render_stats(buffers, p, settings)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        stats.add(time.perf_counter() - t0)
+        if args.frames > 1:
+            save_png(args.out.replace(".png", f"_{i:04d}.png"), img.cpu().numpy())
+    if args.frames == 1:
+        save_png(args.out, img.cpu().numpy())
+    log.info("wrote %s", args.out)
+    if args.save_state:
+        from arctic_tpu_torch.utils.serialize import save_state
+
+        save_state(args.save_state, params, settings)
+        log.info("saved state to %s", args.save_state)
+    if args.stats:
+        print(stats.summary())
+    return 0
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+    args = build_parser().parse_args(argv)
+    if args.cmd == "render":
+        return cmd_render(args)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

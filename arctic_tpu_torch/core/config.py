@@ -1,5 +1,8 @@
 """Render configuration of the port — the fields of arctic_tpu's
-core/config.py RenderConfig that the ported frame paths read.
+core/config.py RenderConfig that the ported frame paths read, and the one
+rule that turns a dict of the JAX package's fields into it
+(:func:`config_from_dict`: the CLI's ``--config`` and
+``utils/convert.render_config`` both use it).
 
 The frame is the JAX package's fused configuration: fused shading, the
 sun-frustum shadow cull and the f16 HDR round are always on, so they are
@@ -12,7 +15,10 @@ overflow stays loud through check_stats.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+
+from arctic_tpu_torch.utils.errors import RenderError
 
 # Shadow-map tile (square), as the JAX package's default shadow_tile.
 SHADOW_TILE = 64
@@ -72,3 +78,47 @@ class RenderConfig:
         if override is not None:
             return _round_up(override, 1024)
         return _round_up(self.pairs_per_tri * clip_slots + self.pair_reserve, 1024)
+
+
+# Fields of the JAX package's RenderConfig that change no pixel: accepted
+# and ignored (scheduling knobs of its Pallas kernels, and lut_y_skip,
+# which only picks table rows no window reads).
+IGNORED_FIELDS = frozenset({"raster_chunk", "select_chunk", "tiles_per_step", "lut_y_skip"})
+
+# Fields of the JAX package's RenderConfig whose other paths are not
+# ported: (the JAX default, which the port's frame is, and where it stands).
+UNPORTED_FIELDS = {
+    "force_bruteforce": (False, "ROADMAP Queue 1 item 4, the deferred and brute-force frame"),
+    "fused_shade": (True, "ROADMAP Queue 1 item 4, the deferred and brute-force frame"),
+    "tex_group_caps": (None, "ROADMAP Queue 1 item 6, the grouped tile route"),
+    "ibl_specular": (False, "ROADMAP Queue 1 item 7, opt-ins"),
+    "spotlights": (False, "ROADMAP Queue 1 item 7, opt-ins"),
+    "rt_light_shadows": (False, "ROADMAP Queue 1 item 8, the ray-traced mode"),
+    "debug_overflow": (False, "ROADMAP Queue 1 item 5"),
+    "hdr_half_round": (True, "the f16 HDR round is always on in the port"),
+    "sun_frustum_cull": (True, "the sun-frustum cull is always on in the port"),
+    "shadow_tile": (SHADOW_TILE, "the port's shadow tile is 64 x 64, the only one the "
+                                 "JAX package's lut_rows path takes"),
+    "shadow_tile_h": (None, "the port's shadow tile is 64 x 64, the only one the "
+                            "JAX package's lut_rows path takes"),
+}
+
+
+def config_from_dict(fields: dict) -> RenderConfig:
+    """A RenderConfig from the JAX package's RenderConfig fields by name.
+    Fields in IGNORED_FIELDS are dropped; a field of UNPORTED_FIELDS at its
+    JAX default is dropped, at any other value it raises RenderError
+    naming where its path stands, as does a name neither package has."""
+    kept = {f.name for f in dataclasses.fields(RenderConfig)}
+    out = {}
+    for name, value in fields.items():
+        if name in kept:
+            out[name] = value
+        elif name in UNPORTED_FIELDS:
+            default, where = UNPORTED_FIELDS[name]
+            if value != default:
+                raise RenderError(f"RenderConfig.{name}={value!r} takes a path the port does "
+                                  f"not have ({where})")
+        elif name not in IGNORED_FIELDS:
+            raise RenderError(f"RenderConfig has no field {name!r}")
+    return RenderConfig(**out)

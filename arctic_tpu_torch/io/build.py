@@ -55,6 +55,18 @@ class MeshData:
     bitangents: np.ndarray | None = None
 
 
+def fallback_diffuse() -> np.ndarray:
+    """assets/white.png equivalent (app.cpp:214)."""
+    return np.full((1, 1, 4), 255, np.uint8)
+
+
+def fallback_normal() -> np.ndarray:
+    """assets/normal.png equivalent (app.cpp:229): flat +Z tangent normal."""
+    t = np.zeros((1, 1, 4), np.uint8)
+    t[..., 0], t[..., 1], t[..., 2], t[..., 3] = 128, 128, 255, 255
+    return t
+
+
 def compute_tangents(
     positions: np.ndarray, normals: np.ndarray, uvs: np.ndarray, indices: np.ndarray
 ) -> tuple[np.ndarray, np.ndarray]:

@@ -48,6 +48,7 @@ from arctic_tpu_torch.ops import binning, cull, raster, raster_tiles, shadow, sk
 from arctic_tpu_torch.ops.pbr import dot_cf, outgoing_radiance_cf
 from arctic_tpu_torch.ops.sampling import quad_index, tap_resolve, tile_index, tile_tap_resolve
 from arctic_tpu_torch.utils.errors import RenderError
+from arctic_tpu_torch.utils.profiling import named_scope
 
 
 def use_full_f32() -> None:
@@ -260,7 +261,7 @@ def shade_gbuffer(
     dy = torch.where(covered, 0.0, dy)
     dz = torch.where(covered, 0.0, dz)
 
-    with torch.profiler.record_function("pcf_shadow"):
+    with named_scope("pcf_shadow"):
         shadow_f, pcf_rows = pcf_shadow(
             gbuf, covered, shadow_map, config, sun_lut, sun_pyr, lut_y_range
         )
@@ -317,7 +318,7 @@ def shade_gbuffer(
     wo = torch.stack([eye[i] - wp[i] for i in range(3)])
     wo = wo / torch.sqrt(dot_cf(wo, wo))
 
-    with torch.profiler.record_function("pbr_lights"):
+    with named_scope("pbr_lights"):
         hdr = _light_and_composite(
             params, config, covered, background, wp, n, wo, lit, base_color,
             metalness, roughness,
@@ -375,9 +376,9 @@ def render_frame_stats(
     cam_pv = params.camera.proj_view()
     sun_lut = sun_pyr = lut_y_range = None
 
-    # record_function ranges name the frame graph's passes in profiler
-    # traces (the JAX package's named_scope labels).
-    with torch.profiler.record_function("shadow_pass"):
+    # named_scope ranges name the frame graph's passes in profiler traces
+    # (the JAX package's named_scope labels).
+    with named_scope("shadow_pass"):
         wc = world_corners(geom)
         sun_clip = corners_clip(wc, sun_pv)
         tri_valid = torch.arange(geom.capacity, device=dev) < geom.num_tris
@@ -389,20 +390,20 @@ def render_frame_stats(
             sun_lut, sun_pyr = sun_cache.lutq, sun_cache.pyramid
             sh_pairs, sh_cap = torch.zeros((), dtype=torch.int32, device=dev), 1
 
-    with torch.profiler.record_function("forward_visibility"):
+    with named_scope("forward_visibility"):
         clipped = raster.near_clip_corners(corners_clip(wc, cam_pv), tri_valid)
         setup = raster.setup_screen_triangles(clipped, config.width, config.height, cull="back")
         shade_rows = build_shade_rows(setup, geom, wc, tuple(c[:3] for c in sun_clip))
         ibuf, gbuf, cam_pairs = raster_tiles.raster_gbuffer(
             setup, shade_rows, config.height, config.width, config
         )
-    with torch.profiler.record_function("forward_shade_skybox"):
+    with named_scope("forward_shade_skybox"):
         hdr, pcf_rows = shade_gbuffer(
             buffers, params, gbuf, ibuf >= 0, shadow_map, config, sun_lut, sun_pyr,
             lut_y_range,
         )
 
-    with torch.profiler.record_function("post_process"):
+    with named_scope("post_process"):
         # R16G16B16A16_FLOAT storage rounding (renderer.cpp:128-144).
         hdr = hdr.half().float()
         ldr = tonemap.tonemap(hdr, settings.tm_method, settings.gamma, settings.exposure)
@@ -444,7 +445,7 @@ def build_sun_cache(buffers: SceneBuffers, params: SceneParams, config: RenderCo
     when the sun or the geometry changes."""
     use_full_f32()
     geom = buffers.geometry
-    with torch.profiler.record_function("shadow_pass"):
+    with named_scope("shadow_pass"):
         sun_clip = corners_clip(world_corners(geom), params.sun.proj_view())
         shadow_map, sh_pairs, sh_cap = shadow_pass(geom, sun_clip, config)
         lutq = pyr = None

@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from arctic_tpu_torch.core.config import RenderConfig
+from arctic_tpu_torch.core.config import RenderConfig, config_from_dict
 from arctic_tpu_torch.core.scene import (
     Camera,
     DirectionalLight,
@@ -105,21 +105,11 @@ def settings(js) -> Settings:
 
 
 def render_config(jc) -> RenderConfig:
-    """JAX-package RenderConfig -> RenderConfig. Raises ValueError when a
-    field the port does not carry is set away from its default there (a
-    path the port does not have). ``lut_y_skip`` is accepted either way: it
-    only picks which table rows no window reads are written, so the pixels
-    are the same (the port always writes the band)."""
-    kept = {f.name for f in dataclasses.fields(RenderConfig)}
-    default = type(jc)()
-    off = [
-        f.name for f in dataclasses.fields(jc)
-        if f.name not in kept and f.name != "lut_y_skip"
-        and getattr(jc, f.name) != getattr(default, f.name)
-    ]
-    if off:
-        raise ValueError(f"RenderConfig options the port does not have: {off}")
-    return RenderConfig(**{name: getattr(jc, name) for name in kept})
+    """JAX-package RenderConfig -> RenderConfig, by core/config's
+    config_from_dict: fields that change no pixel are dropped, and a field
+    whose path the port does not have raises RenderError unless it is at
+    its JAX default."""
+    return config_from_dict({f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)})
 
 
 def window_table_q(jlut, s: int) -> np.ndarray:

@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Four frame paths are driven: the default one (exact f32 PCF; kernels K1
+The real-size default scene comes through bench.py's GLB + HDR round trip
+(phase 4), and the CLI renders a GLB (phase 4g). Four frame paths are
+driven: the default one (exact f32 PCF; kernels K1
 raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve), the
 quantised PCF path of RenderConfig.pcf_row_cap (the same four plus K7
 window_lut_q and K8 pcf_eval), with and without a sun cache, the textured
@@ -33,13 +35,19 @@ raises on failure (exit code != 0):
    pixels, with equal pair stats, and >= 40 dB PSNR against the f64 golden
    oracle (which samples the material images, not an atlas); check_stats
    must pass;
-4. real size: the Sponza-class scene (251,500 tris) at 1920x1080 with a
-   4000^2 shadow map, ACES, 4 static point lights, the bench viewpoint and
-   light rig, pair caps from autotune_pair_caps(margin=1.4) over bench.py's
-   20 fly-through viewpoints; 5 fly-through frames on the default path,
-   each passing check_stats and not black; frame 19 against
-   docs/images/bench_golden.png is printed for the record (bench.py made
-   that frame through a glTF round trip, which the port lacks). Launch
+4. real size: the Sponza-class scene (251,500 tris) through bench.py's
+   asset path (written with the port's save_glb and save_hdr into
+   build/chip_smoke/, loaded back with load_scene_file(glb, env_path=hdr),
+   its triangle count equal to the direct scene's; write and load seconds
+   and the GLB bytes printed) at 1920x1080 with a 4000^2 shadow map, ACES,
+   4 static point lights, the bench viewpoint and light rig, pair caps
+   from autotune_pair_caps(margin=1.4) over bench.py's 20 fly-through
+   viewpoints; 5 fly-through frames on the default path, each passing
+   check_stats and not black; frame 19 gated against
+   docs/images/bench_golden.png, which bench.py made through the same
+   round trip: >= 99% of its pixels within 8 LSB and >= 40 dB over them
+   (the whole-frame PSNR and the depth-tie share are printed, as for 4d).
+   Phases 4b, 4c, 4e and 4f run on the same loaded scene. Launch
    counts are zeroed right before each path's frames and read right after;
 4b. the quantised path at real size: frame 0 with every row in the cap
    gives pcf_rows; the cap becomes 32 * ceil(1.4 * pcf_rows / 32), frame 0
@@ -47,7 +55,8 @@ raises on failure (exit code != 0):
 4c. the cached sun at real size: build_sun_cache, then the 5 frames with
    the cache, each within 1 LSB of the uncached frame of 4b;
 4d. the textured path at real size: sponza_like_scene(texture_size=1024,
-   n_materials=24) on the tile atlas, its own tuned pair caps, the 5-frame
+   n_materials=24) on the tile atlas, built directly (bench.py skips the
+   round trip for it too), its own tuned pair caps, the 5-frame
    fly-through (K9 once a frame, K6 never), and frame 19 gated against
    docs/images/bench_tex1024.png: >= 99% of its pixels within 8 LSB and
    >= 40 dB (bench.py's min_db) over them (the whole-frame PSNR is printed:
@@ -62,6 +71,12 @@ raises on failure (exit code != 0):
    handed them to its PCF: K12 launched, the result bit-equal to the
    runs-path result that frame computed (4e and 4f run after 4d, so the
    earlier paths see the same retained inputs as before them);
+4g. the CLI on the card: Cornell exported with the port's save_glb (its
+   environment as an .hdr beside it), then ``cli.main(["render", glb,
+   ...])`` at the entry size and camera with --frames 2 --stats on the
+   default device: K1, K3, K4 and K6 must launch, both PNGs (decoded by
+   io/images) must equal the in-process frame of the loaded scene bit for
+   bit and be >= 40 dB against that scene's f64 oracle;
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded): bit-exact
    equality, CUDA-event times of kernel and plain version at the real-size
@@ -88,11 +103,11 @@ raises on failure (exit code != 0):
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Frames are saved under build/chip_smoke/ as
-.npy. The goldens are read by read_png (zlib and numpy: the card's machine
-has no Pillow). ``--profile`` adds a torch.profiler pass over two
-real-size frames of each path (busy share, per-pass device time, top
-kernels; these lines, the profiler's table and a trace in
-build/chip_smoke/, one file per path).
+.npy. The goldens and the CLI's PNGs are decoded by the port's io/images
+(zlib and numpy: the card's machine has no Pillow). ``--profile`` adds a
+torch.profiler pass over two real-size frames of each path (busy share,
+per-pass device time, top kernels; these lines, the profiler's table and
+a trace in build/chip_smoke/, one file per path).
 """
 
 from __future__ import annotations
@@ -280,6 +295,74 @@ def run_entry(device, oracle, pcf_row_cap=None, textured=False, default_img=None
     return img, calls
 
 
+def run_cli():
+    """The CLI on the card: the Cornell entry scene exported to a GLB (its
+    environment as an .hdr beside it, which load_scene_file finds), then
+    ``cli.main(["render", glb, ...])`` at the entry size and camera with
+    --frames 2 --stats on the default device. K1, K3, K4 and K6 must launch;
+    both PNGs, decoded by io/images, must equal the port's in-process frame
+    of the same loaded scene and config bit for bit, and be >= 40 dB
+    against the f64 oracle of that scene."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.app import cli
+    from arctic_tpu_torch.core.config import RenderConfig
+    from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
+    from arctic_tpu_torch.io.build import build_buffers
+    from arctic_tpu_torch.io.gltf_export import save_glb
+    from arctic_tpu_torch.io.images import load_ldr, save_hdr
+    from arctic_tpu_torch.io.load import load_scene_file
+    from arctic_tpu_torch.io.procedural import cornell_like_scene
+    from arctic_tpu_torch.models import golden, pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    w, h, s = ENTRY["width"], ENTRY["height"], ENTRY["shadow"]
+    folder = os.path.join(OUT_DIR, "cli")
+    os.makedirs(folder, exist_ok=True)
+    meshes, objects, materials, env = cornell_like_scene()
+    glb, out = os.path.join(folder, "cornell.glb"), os.path.join(folder, "frame.png")
+    save_glb(glb, meshes, objects, materials)
+    save_hdr(os.path.join(folder, "env.hdr"), env)
+    cam = ",".join(str(v) for v in ENTRY["eye"] + ENTRY["rot"])
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    rc = cli.main(["render", glb, "--width", str(w), "--height", str(h), "--shadow-size",
+                   str(s), f"--camera={cam}", "--frames", "2", "--stats", "--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    log(f"cli render (rc {rc}, {wall:.2f} s with the scene load and build) launches: {counts}")
+    if rc != 0:
+        raise RuntimeError(f"the CLI returned {rc}")
+    check_launches(counts, DEFAULT_PATH, "cli", absent=("tile_tap_resolve", "transpose_pack_rows"))
+
+    scene = load_scene_file(glb)
+    bufs = build_buffers(*scene, device="cuda")
+    params = default_scene_params(aspect=w / h)
+    params.camera = make_camera(ENTRY["eye"], ENTRY["rot"], w / h)
+    settings = default_settings()
+    config = pipeline.autotune_pair_caps(bufs, params, RenderConfig(width=w, height=h, shadow_size=s))
+    config = dataclasses.replace(config, static_point_lights=params.point_lights.count)
+    img, stats = pipeline.make_renderer_stats(config)(bufs, params, settings)
+    pipeline.check_stats(stats)
+    img = img.cpu().numpy()
+    for i in range(2):
+        png = load_ldr(out.replace(".png", f"_{i:04d}.png"))[..., :3]
+        if not np.array_equal(png, img):
+            d = np.abs(png.astype(np.int32) - img.astype(np.int32))
+            raise RuntimeError(f"the CLI's frame {i} differs from the in-process frame: max "
+                               f"{d.max()} LSB on {int((d.max(axis=2) > 0).sum())} pixels")
+    t = time.perf_counter()
+    db = golden.psnr(img, golden_frame(scene, params, settings, config))
+    log(f"cli frames: both PNGs bit-equal to the in-process frame of the loaded GLB; "
+        f"{db:.2f} dB vs its f64 oracle ({time.perf_counter() - t:.1f} s)")
+    if db < 40.0:
+        raise RuntimeError(f"the CLI's frame PSNR {db:.2f} dB < 40 dB")
+
+
 def real_params(i: int):
     import torch
 
@@ -335,8 +418,12 @@ def tune_caps(bufs, label: str):
 
 
 def real_buffers(device, textured=False):
-    """The Sponza-class scene on ``device``; ``textured``: with 24 materials
-    of three 1024^2 maps (bench.py's textured_scene), on the tile atlas."""
+    """The Sponza-class scene on ``device``. The default one takes bench.py's
+    asset path (bench.py:309-325): written with the port's save_glb and
+    save_hdr into build/chip_smoke/ and loaded back with load_scene_file,
+    its triangle count held to the direct scene's. ``textured``: with 24
+    materials of three 1024^2 maps (bench.py's textured_scene), on the tile
+    atlas, built directly, as bench.py builds it."""
     import torch
 
     from arctic_tpu_torch.io.build import build_buffers
@@ -345,6 +432,9 @@ def real_buffers(device, textured=False):
     t0 = time.perf_counter()
     scene = sponza_like_scene(texture_size=1024, n_materials=24) if textured else sponza_like_scene()
     t1 = time.perf_counter()
+    if not textured:
+        scene = asset_round_trip(scene)
+        t1 = time.perf_counter()
     before = torch.cuda.memory_allocated()
     bufs = build_buffers(*scene, device=device)
     torch.cuda.synchronize()
@@ -352,9 +442,10 @@ def real_buffers(device, textured=False):
     label = "textured real-size" if textured else "real-size"
     g = bufs.geometry
     log(f"{label} scene: {g.num_tris} tris, capacity {g.capacity}; "
-        f"generated in {t1 - t0:.1f} s, built in {t2 - t1:.1f} s; "
-        f"{torch.cuda.memory_allocated() - before} B on the card, slot_static_rows "
-        f"{g.slot_static_rows.numel() * 4} B of it (tri_static_attrs and tri_matrow are views of it)")
+        f"generated{'' if textured else ' and round-tripped'} in {t1 - t0:.1f} s, built in "
+        f"{t2 - t1:.1f} s; {torch.cuda.memory_allocated() - before} B on the card, "
+        f"slot_static_rows {g.slot_static_rows.numel() * 4} B of it (tri_static_attrs and "
+        f"tri_matrow are views of it)")
     if textured:
         tiles = bufs.atlas.tiles
         if tiles is None:
@@ -364,61 +455,43 @@ def real_buffers(device, textured=False):
     return bufs
 
 
-def read_png(path):
-    """(H, W, 3) u8 of an 8-bit RGB or RGBA, non-interlaced PNG (alpha
-    dropped), with the standard library's zlib and numpy. Raises on any
-    other PNG. The rows are unfiltered along anti-diagonals: pixel (y, x)
-    depends only on (y, x-1), (y-1, x) and (y-1, x-1), so each diagonal is
-    one vectorised step whatever the rows' filter types."""
-    import zlib
+def asset_round_trip(scene):
+    """bench.py's asset path: the scene written as a GLB and its
+    environment as a Radiance .hdr into build/chip_smoke/, and loaded back
+    with load_scene_file(glb, env_path=hdr). The loaded scene must hold as
+    many triangles as the direct one (bench.py:320-324); the loader's stack
+    walk reverses the object order, and the environment comes back
+    RGBE-quantised."""
+    from arctic_tpu_torch.io.gltf_export import save_glb
+    from arctic_tpu_torch.io.images import save_hdr
+    from arctic_tpu_torch.io.load import load_scene_file
 
-    import numpy as np
+    meshes, objects, materials, env = scene
+    os.makedirs(OUT_DIR, exist_ok=True)
+    glb, hdr = os.path.join(OUT_DIR, "sponza_class.glb"), os.path.join(OUT_DIR, "env.hdr")
+    t0 = time.perf_counter()
+    save_glb(glb, meshes, objects, materials)
+    save_hdr(hdr, env)
+    t1 = time.perf_counter()
+    loaded = load_scene_file(glb, env_path=hdr)
+    t2 = time.perf_counter()
+    n_direct = sum(len(m.indices) for m in meshes)
+    n_loaded = sum(len(m.indices) for m in loaded[0])
+    log(f"asset path: wrote {os.path.getsize(glb)} B of GLB and {os.path.getsize(hdr)} B of "
+        f"HDR in {t1 - t0:.3f} s, loaded in {t2 - t1:.3f} s: {n_loaded} mesh tris "
+        f"({n_direct} direct), {len(loaded[1])} objects ({len(objects)} direct)")
+    if n_loaded != n_direct or len(loaded[1]) != len(objects):
+        raise RuntimeError(f"the GLB round trip changed the scene: {n_loaded} tris / "
+                           f"{len(loaded[1])} objects, {n_direct} / {len(objects)} direct")
+    return loaded
 
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, ihdr, idat = 8, None, []
-    while pos + 12 <= len(data):
-        n = int.from_bytes(data[pos : pos + 4], "big")
-        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
-        if zlib.crc32(kind + body) != int.from_bytes(data[pos + 8 + n : pos + 12 + n], "big"):
-            raise ValueError(f"{path}: bad CRC in chunk {kind!r}")
-        pos += 12 + n
-        if kind == b"IHDR":
-            ihdr = body
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if ihdr is None or not idat:
-        raise ValueError(f"{path}: no IHDR or IDAT chunk")
-    w, h = int.from_bytes(ihdr[0:4], "big"), int.from_bytes(ihdr[4:8], "big")
-    depth, ctype, comp, filt, interlace = ihdr[8:13]
-    if depth != 8 or ctype not in (2, 6) or comp or filt or interlace:
-        raise ValueError(f"{path}: only 8-bit RGB / RGBA, non-interlaced PNGs are read "
-                         f"(depth {depth}, colour type {ctype}, interlace {interlace})")
-    bpp = 3 if ctype == 2 else 4
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
-        raise ValueError(f"{path}: {raw.size} bytes of image data for {w}x{h}x{bpp}")
-    raw = raw.reshape(h, 1 + w * bpp)
-    ftype = raw[:, 0].astype(np.int16)
-    if ftype.max() > 4:
-        raise ValueError(f"{path}: unknown filter type {ftype.max()}")
-    px = raw[:, 1:].reshape(h, w, bpp).astype(np.int16)
-    out = np.zeros((h + 1, w + 1, bpp), np.int16)  # a zero row above, column left
-    for d in range(h + w - 1):
-        y = np.arange(max(0, d - w + 1), min(h, d + 1))
-        x = d - y
-        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]
-        p = a + b - c
-        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-        f = ftype[y][:, None]
-        pred = np.select([f == 1, f == 2, f == 3, f == 4], [a, b, (a + b) // 2, paeth], 0)
-        out[y + 1, x + 1] = (px[y, x] + pred) & 255
-    return out[1:, 1:, :3].astype(np.uint8)
+
+def read_golden(name: str):
+    """(H, W, 3) u8 of docs/images/<name>, decoded by the port's io/images
+    (zlib and numpy: the card's machine has no Pillow)."""
+    from arctic_tpu_torch.io.images import load_ldr
+
+    return load_ldr(os.path.join(REPO, "docs", "images", name))[..., :3]
 
 
 def golden_compare(img, name: str) -> dict:
@@ -429,7 +502,7 @@ def golden_compare(img, name: str) -> dict:
 
     from arctic_tpu_torch.models import golden
 
-    gold = read_png(os.path.join(REPO, "docs", "images", name))
+    gold = read_golden(name)
     if gold.shape != img.shape:
         raise RuntimeError(f"frame shape {img.shape} != golden {name} {gold.shape}")
     near = np.abs(img.astype(np.int32) - gold.astype(np.int32)).max(axis=2) <= GOLDEN_NEAR_LSB
@@ -447,7 +520,7 @@ def depth_probe(render, bufs, last, name: str, eps: float = 1e-4) -> float:
     import numpy as np
     import torch
 
-    gold = read_png(os.path.join(REPO, "docs", "images", name))
+    gold = read_golden(name)
     far = np.abs(last.astype(np.int32) - gold.astype(np.int32)).max(axis=2) > GOLDEN_NEAR_LSB
     flips = np.zeros(far.shape, bool)
     for sign in (-1.0, 1.0):
@@ -512,8 +585,8 @@ def _mem(mem) -> str:
 
 
 def run_real(device, bufs, config, profile: bool = False):
-    """Real-size fly-through on the default path, then frame 19 against
-    bench_golden.png for the record; returns (summary dict, recorded
+    """Real-size fly-through on the default path, then frame 19 gated
+    against bench_golden.png; returns (summary dict, recorded
     kernel calls, launch counts of the timed frames, the frames on the
     host)."""
     import numpy as np
@@ -551,9 +624,15 @@ def run_real(device, bufs, config, profile: bool = False):
     last = last_bench_frame(render, bufs)
     np.save(os.path.join(OUT_DIR, "chip_smoke_real_19.npy"), last)
     g = summary["golden"] = golden_compare(last, "bench_golden.png")
-    log(f"real-size frame 19 vs bench_golden.png (for the record: that golden went "
-        f"through bench.py's glTF round trip): {g['db']:.2f} dB whole frame; "
-        f"{g['near']:.4%} of pixels within {GOLDEN_NEAR_LSB} LSB, {g['near_db']:.2f} dB over them")
+    g["depth_tied"] = depth_probe(render, bufs, last, "bench_golden.png")
+    log(f"real-size frame 19 (the GLB round trip's scene, as bench.py made the golden) vs "
+        f"bench_golden.png: {g['db']:.2f} dB whole frame; {g['near']:.4%} of pixels within "
+        f"{GOLDEN_NEAR_LSB} LSB, {g['near_db']:.2f} dB over them (gate: >= "
+        f"{GOLDEN_NEAR_SHARE:.0%} and >= {GOLDEN_MIN_DB} dB); of the pixels further off, "
+        f"{g['depth_tied']:.2%} lie within 1 px of a pixel that a 1e-4 relative move of "
+        f"z_near changes")
+    if g["near"] < GOLDEN_NEAR_SHARE or g["near_db"] < GOLDEN_MIN_DB:
+        raise RuntimeError(f"default frame 19 fails its golden gate: {g}")
     return summary, calls, counts, imgs
 
 
@@ -1257,6 +1336,9 @@ def main() -> int:
     fsummary, freal_calls, fcounts = run_full_stack(dev, bufs, base, real_imgs, profile)
     del real_imgs
     lut_calls, lcounts = run_f32_table_pcf(dev, bufs, base)
+    # After the real-size paths, so that each of them sees the caching
+    # allocator's history of the parent's script (bytes and peaks compare).
+    run_cli()
     log(f"real-size ms/frame medians (one call, one card): default "
         f"{summary['ms_per_frame_median']:.3f}, full-stack {fsummary['ms_per_frame_median']:.3f}, "
         f"quant {qsummary['ms_per_frame_median']:.3f}, "

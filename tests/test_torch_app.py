@@ -1,0 +1,293 @@
+"""The port's app layer on the CPU: `python -m arctic_tpu_torch.app.cli
+render` (``--device cpu``), the state files, FlyCamera, FrameStats, the
+shared dict -> RenderConfig rule and the render guard.
+
+The CLI's PNG must equal the port's in-process frame of the same scene and
+config bit for bit, and be >= 40 dB against the port's f64 oracle
+(test_golden_psnr's gate). Frames are 96x64 with a 96^2 shadow map; no JAX
+frame is rendered (the JAX package is compared with only where no frame is
+needed: state files, FlyCamera, FrameStats).
+"""
+
+import dataclasses
+import json
+import re
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from arctic_tpu.app.camera import FlyCamera as JFlyCamera
+from arctic_tpu.core.scene import default_scene_params as j_default_params
+from arctic_tpu.utils import serialize as jserialize
+from arctic_tpu.utils.profiling import FrameStats as JFrameStats
+from arctic_tpu_torch.app.camera import FlyCamera
+from arctic_tpu_torch.app.cli import main
+from arctic_tpu_torch.core.config import UNPORTED_FIELDS, RenderConfig, config_from_dict
+from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
+from arctic_tpu_torch.io import build, gltf_export, images, load, procedural
+from arctic_tpu_torch.models import golden, pipeline
+from arctic_tpu_torch.utils import profiling, serialize
+from arctic_tpu_torch.utils.errors import RenderError, render_guard
+
+W, H, SHADOW = 96, 64, 96
+EYE, ROT = [0.0, 4.0, 3.0], [-25.0, -90.0]
+BASE = ["render", "--width", str(W), "--height", str(H), "--shadow-size", str(SHADOW),
+        "--camera=0,4,3,-25,-90", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The suite runs test files in several processes at once; an
+    oversubscribed torch thread pool slows these small CPU frames by orders
+    of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _render(argv, out):
+    """Run the CLI; the RGB of its PNG (None when it wrote one per frame)."""
+    assert main(BASE + argv + ["--out", str(out)]) == 0
+    return None if "--frames" in argv else images.load_ldr(str(out))[..., :3]
+
+
+def _in_process(scene, config=None, tm=0):
+    """The port's frame of ``scene`` as the CLI renders it: tuned pair
+    caps, the light count static."""
+    meshes, objects, materials, env = scene
+    bufs = build.build_buffers(meshes, objects, materials, env, device="cpu")
+    params = default_scene_params(aspect=W / H)
+    params.camera = make_camera(EYE, ROT, W / H)
+    settings = default_settings()
+    settings.tm_method = tm
+    config = config or RenderConfig(width=W, height=H, shadow_size=SHADOW)
+    config = pipeline.autotune_pair_caps(bufs, params, config)
+    config = dataclasses.replace(config, static_point_lights=params.point_lights.count)
+    img, stats = pipeline.make_renderer_stats(config, "cpu")(bufs, params, settings)
+    pipeline.check_stats(stats)
+    return img.numpy(), params, settings
+
+
+def _oracle_db(img, scene, params, settings):
+    meshes, objects, materials, env = scene
+    tris, mats = golden.golden_scene(meshes, objects, materials)
+    c, s, pl = params.camera, params.sun, params.point_lights
+    gold = golden.render(
+        tris, mats, env.astype(np.float64),
+        dict(eye=c.eye.tolist(), rotation=c.rotation.tolist(), aspect=float(c.aspect),
+             fov_y=float(c.fov_y), z_near=float(c.z_near), z_far=float(c.z_far)),
+        dict(position=s.position.tolist(), rotation=s.rotation.tolist(), color=s.color.tolist()),
+        [(pl.position[i].tolist(), pl.color[i].tolist()) for i in range(pl.count)],
+        ambient=float(params.ambient),
+        settings=dict(tm_method=settings.tm_method, gamma=float(settings.gamma),
+                      exposure=float(settings.exposure)),
+        width=W, height=H, shadow_size=SHADOW,
+    )
+    return golden.psnr(img, gold)
+
+
+@pytest.mark.parametrize("source", ["procedural", "glb"])
+def test_cli_renders_cornell(tmp_path, source):
+    """Cornell, built in or exported to a GLB with its environment as an
+    .hdr beside it: the CLI's PNG is the in-process frame of the same
+    (loaded) scene, and >= 40 dB against the f64 oracle."""
+    if source == "procedural":
+        scene = procedural.cornell_like_scene()
+        argv = ["--procedural", "cornell"]
+    else:
+        meshes, objects, materials, env = procedural.cornell_like_scene()
+        glb = tmp_path / "cornell.glb"
+        gltf_export.save_glb(str(glb), meshes, objects, materials)
+        images.save_hdr(str(tmp_path / "env.hdr"), env)
+        scene = load.load_scene_file(str(glb))
+        argv = [str(glb)]
+    img = _render(argv, tmp_path / "f.png")
+    want, params, settings = _in_process(scene)
+    assert img.shape == (H, W, 3) and img.std() > 10
+    np.testing.assert_array_equal(img, want)
+    db = _oracle_db(img, scene, params, settings)
+    assert db >= 40.0, f"CLI frame PSNR {db:.2f} dB < 40 dB"
+
+
+def test_cli_config_shadow_tile_and_ignored_fields(tmp_path):
+    """A --config holding the JAX package's raster_chunk / select_chunk /
+    tiles_per_step (which change no pixel) and its default shadow tile
+    renders the default config's frame, bit for bit; another shadow tile
+    raises before the scene is built."""
+    cfg = tmp_path / "config.json"
+    cfg.write_text(json.dumps(dict(raster_chunk=64, select_chunk=32, tiles_per_step=4,
+                                   shadow_tile=64, shadow_tile_h=None, fused_shade=True)))
+    base = _render(["--procedural", "cornell"], tmp_path / "a.png")
+    tuned = _render(["--procedural", "cornell", "--config", str(cfg)], tmp_path / "b.png")
+    np.testing.assert_array_equal(tuned, base)
+    cfg.write_text(json.dumps(dict(shadow_tile=128, shadow_tile_h=32)))
+    with pytest.raises(RenderError, match="shadow_tile"):
+        main(["render", str(tmp_path / "missing.glb"), "--device", "cpu", "--config", str(cfg)])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--bruteforce"], ["--ibl"], ["--spot", "0,1,0,1,1,1,0,-1,0,20,30"], ["--raytrace"],
+    ["--devices", "2"], ["--debug-checks"],
+], ids=lambda a: a[0])
+def test_cli_unported_flags_raise_before_loading(tmp_path, argv):
+    """Each flag of a path the port lacks raises RenderError naming its
+    ROADMAP item before the scene is read (the path does not exist)."""
+    with pytest.raises(RenderError, match="ROADMAP"):
+        main(["render", str(tmp_path / "missing.glb"), "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("field", sorted(UNPORTED_FIELDS))
+def test_config_unported_fields_raise(field):
+    default, _ = UNPORTED_FIELDS[field]
+    assert config_from_dict({field: default}) == RenderConfig()
+    other = (32,) if default is None else default // 2 if type(default) is int else not default
+    with pytest.raises(RenderError, match=field):
+        config_from_dict({field: other})
+
+
+def test_config_tiles_and_unknown_fields():
+    """The shadow tile is the JAX default 64 x 64: other tiles and names
+    neither package has raise."""
+    assert config_from_dict(dict(shadow_tile=64, shadow_tile_h=None)) == RenderConfig()
+    for tile in (dict(shadow_tile=32), dict(shadow_tile_h=32), dict(shadow_tile=64, shadow_tile_h=16)):
+        with pytest.raises(RenderError, match="shadow_tile"):
+            config_from_dict(tile)
+    with pytest.raises(RenderError, match="no field"):
+        config_from_dict(dict(shadow_tiles=64))
+
+
+def test_cli_cache_sun_orbit(tmp_path):
+    """--cache-sun renders the shadow map once; the orbit's frames are the
+    uncached frames."""
+    argv = ["--procedural", "cornell", "--frames", "2", "--orbit"]
+    _render(argv + ["--cache-sun"], tmp_path / "c.png")
+    _render(argv, tmp_path / "u.png")
+    for i in range(2):
+        cached = images.load_ldr(str(tmp_path / f"c_{i:04d}.png"))
+        uncached = images.load_ldr(str(tmp_path / f"u_{i:04d}.png"))
+        assert cached.std() > 5
+        np.testing.assert_array_equal(cached, uncached)
+
+
+def test_cli_stats_excludes_png_encode(tmp_path, monkeypatch, capsys):
+    """--stats times the render and the device sync only: a slow PNG
+    encode does not move the measured frame times."""
+    real_save, delay = images.save_png, 0.5
+
+    def slow_save(path, img):
+        time.sleep(delay)
+        return real_save(path, img)
+
+    monkeypatch.setattr(images, "save_png", slow_save)
+    _render(["--procedural", "cornell", "--frames", "2", "--stats"], tmp_path / "f.png")
+    summary = capsys.readouterr().out.strip().splitlines()[-1]
+    m = re.search(r"max=([0-9.]+)ms", summary)
+    assert m and float(m.group(1)) < delay * 1e3, summary
+
+
+def test_cli_load_state_restores_settings(tmp_path):
+    """--save-state then --load-state round-trips the settings and the
+    camera, and an explicit flag overrides the loaded value (as
+    tests/test_app.py holds the JAX CLI)."""
+    state, state2, state3 = (tmp_path / f"s{i}.json" for i in range(3))
+    base = ["--procedural", "cornell"]
+    _render(base + ["--tm", "aces", "--gamma", "1.8", "--exposure", "2.5",
+                    "--save-state", str(state)], tmp_path / "a.png")
+
+    def check_settings(d, tm, gamma, exposure):
+        assert d["tm_method"] == tm
+        assert d["gamma"] == pytest.approx(gamma, rel=1e-6)
+        assert d["exposure"] == pytest.approx(exposure, rel=1e-6)
+
+    check_settings(json.loads(state.read_text())["settings"], 2, 1.8, 2.5)
+    assert main(["render", "--procedural", "cornell", "--width", str(W), "--height", str(H),
+                 "--shadow-size", str(SHADOW), "--device", "cpu", "--out",
+                 str(tmp_path / "b.png"), "--load-state", str(state),
+                 "--save-state", str(state2)]) == 0
+    saved2 = json.loads(state2.read_text())
+    check_settings(saved2["settings"], 2, 1.8, 2.5)
+    assert saved2["camera"]["eye"] == EYE and saved2["camera"]["rotation"] == ROT
+    _render(base + ["--load-state", str(state), "--gamma", "2.4", "--save-state", str(state3)],
+            tmp_path / "c.png")
+    check_settings(json.loads(state3.read_text())["settings"], 2, 2.4, 2.5)
+
+
+def _jax_params_equal(jp, js, tp, ts):
+    for f in ("eye", "rotation", "aspect", "fov_y", "z_near", "z_far"):
+        np.testing.assert_array_equal(np.asarray(getattr(jp.camera, f)),
+                                      getattr(tp.camera, f).numpy(), err_msg=f)
+    for f in ("position", "rotation", "color"):
+        np.testing.assert_array_equal(np.asarray(getattr(jp.sun, f)),
+                                      getattr(tp.sun, f).numpy(), err_msg=f)
+    assert int(jp.point_lights.count) == tp.point_lights.count
+    np.testing.assert_array_equal(np.asarray(jp.point_lights.position), tp.point_lights.position)
+    np.testing.assert_array_equal(np.asarray(jp.point_lights.color), tp.point_lights.color)
+    np.testing.assert_array_equal(np.asarray(jp.ambient), tp.ambient.numpy())
+    assert int(js.tm_method) == ts.tm_method
+    np.testing.assert_array_equal(np.asarray(js.gamma), ts.gamma.numpy())
+    np.testing.assert_array_equal(np.asarray(js.exposure), ts.exposure.numpy())
+
+
+def test_state_files_load_in_either_package(tmp_path):
+    """A state saved by the port loads in the JAX package's load_state to
+    equal params and settings, and the other way round; the JSON is the
+    same."""
+    from arctic_tpu_torch.core.scene import PointLights, Settings
+
+    params = default_scene_params(aspect=W / H)
+    params.camera = make_camera([1.5, 2.25, -3.0], [-12.5, 33.3], W / H, fov_y=50.0)
+    params.point_lights = PointLights.from_list([((0.0, 1.0, 0.0), (10.0, 0.0, 0.0)),
+                                                 ((1.0, 2.0, 3.0), (0.1, 0.2, 0.3))])
+    settings = Settings(tm_method=1, gamma=torch.tensor(1.9), exposure=torch.tensor(0.7))
+    ours = tmp_path / "ours.json"
+    serialize.save_state(str(ours), params, settings)
+    jp, js = jserialize.load_state(str(ours))
+    _jax_params_equal(jp, js, params, settings)
+    theirs = tmp_path / "theirs.json"
+    jserialize.save_state(str(theirs), jp, js)
+    assert json.loads(theirs.read_text()) == json.loads(ours.read_text())
+    tp, ts = serialize.load_state(str(theirs))
+    _jax_params_equal(jp, js, tp, ts)
+    d = json.loads(ours.read_text())
+    d["point_lights"][0].update(spot_dir=[0, -1, 0], spot_cos=[0.5, 2.0])
+    with pytest.raises(RenderError, match="spotlights"):
+        serialize.params_from_dict(d)
+
+
+def test_fly_camera_equals_jax():
+    jcam = j_default_params().camera
+    cam = default_scene_params().camera
+    jfc, fc = JFlyCamera(speed=7.5), FlyCamera(speed=7.5)
+    for args in (dict(dt=1.0, forward_input=1.0), dict(dt=0.5, right_input=1.0),
+                 dict(dt=0.25, forward_input=-1.0, right_input=0.5, up_input=1.0)):
+        jcam, cam = jfc.move(jcam, **args), fc.move(cam, **args)
+        jcam, cam = jfc.look(jcam, 10, -4), fc.look(cam, 10, -4)
+        assert cam.eye.dtype == cam.rotation.dtype == torch.float32
+        np.testing.assert_array_equal(np.asarray(jcam.eye), cam.eye.numpy())
+        np.testing.assert_array_equal(np.asarray(jcam.rotation), cam.rotation.numpy())
+
+
+def test_frame_stats_equals_jax():
+    ours, theirs = profiling.FrameStats(capacity=4), JFrameStats(capacity=4)
+    for dt in (0.02, 0.0, 0.015, 0.03, 0.011, 0.05):
+        ours.add(dt)
+        theirs.add(dt)
+    assert list(ours.history) == list(theirs.history)
+    assert ours.summary() == theirs.summary() and ours.fps == theirs.fps
+    assert profiling.FrameStats().summary() == "no frames"
+    ours.tick()
+    assert ours.tick() >= 0.0
+
+
+def test_render_guard_and_trace(tmp_path):
+    with pytest.raises(RenderError, match=r"render failed \(scene x\): ValueError: boom"):
+        with render_guard("scene x"):
+            raise ValueError("boom")
+    with profiling.trace(str(tmp_path)) as d:
+        with profiling.named_scope("pass_a"):
+            torch.ones(4).sum()
+    assert d == str(tmp_path)
+    assert "pass_a" in (tmp_path / "trace.json").read_text()

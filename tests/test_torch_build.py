@@ -21,6 +21,7 @@ from arctic_tpu.io import build as jbuild
 from arctic_tpu.io import procedural as jproc
 from arctic_tpu_torch.io import build, procedural
 from arctic_tpu_torch.utils import convert
+from arctic_tpu_torch.utils.errors import RenderError
 
 SCENES = {"cornell": 256, "helmet": 1024}
 
@@ -167,7 +168,7 @@ def test_convert_render_config():
     tc = convert.render_config(JRenderConfig(pcf_row_cap=4096, lut_y_skip=False))
     assert tc.pcf_row_cap == 4096 and not hasattr(tc, "lut_y_skip")
     for off in (dict(tex_group_caps=(32, 32)), dict(fused_shade=False), dict(sun_frustum_cull=False)):
-        with pytest.raises(ValueError, match=next(iter(off))):
+        with pytest.raises(RenderError, match=next(iter(off))):
             convert.render_config(JRenderConfig(**off))
 
 

@@ -306,22 +306,25 @@ def test_tile_frame_close_to_quad_frame(tile_frames):
 
 @pytest.mark.parametrize("name", ["bench_golden.png", "bench_tex1024.png"])
 def test_png_reader_matches_pillow(name):
-    """chip_smoke.read_png (zlib + numpy, for the card's machine, which has
-    no Pillow) against Pillow on the goldens it reads."""
+    """chip_smoke.read_golden (the port's io/images: zlib + numpy, for the
+    card's machine, which has no Pillow) against Pillow on the goldens it
+    reads."""
     image = pytest.importorskip("PIL.Image")
     import chip_smoke
 
-    path = os.path.join(GOLDENS, name)
-    with image.open(path) as im:
+    with image.open(os.path.join(GOLDENS, name)) as im:
         want = np.asarray(im.convert("RGB"))
-    np.testing.assert_array_equal(chip_smoke.read_png(path), want)
+    np.testing.assert_array_equal(chip_smoke.read_golden(name), want)
 
 
 def test_png_reader_refuses_other_pngs(tmp_path):
+    """A PNG the decoder does not cover (here 16-bit gray) raises
+    RenderError naming the file; it is never read as another image."""
     image = pytest.importorskip("PIL.Image")
-    import chip_smoke
+    from arctic_tpu_torch.io import images
+    from arctic_tpu_torch.utils.errors import RenderError
 
-    path = tmp_path / "grey.png"
-    image.fromarray(np.zeros((4, 4), np.uint8)).save(path)
-    with pytest.raises(ValueError, match="8-bit RGB"):
-        chip_smoke.read_png(str(path))
+    path = tmp_path / "grey16.png"
+    image.fromarray(np.zeros((4, 4), np.uint16)).save(path)
+    with pytest.raises(RenderError, match="grey16.png: PNG bit depth 16"):
+        images.load_ldr(str(path))
