@@ -8,9 +8,14 @@ Examples:
     python -m arctic_tpu_torch.app.cli render --procedural sponza --width 1920 \
         --height 1080 --tm aces --frames 60 --orbit --cache-sun
     python -m arctic_tpu_torch.app.cli render scene.obj --camera 0,5,0,0,0
+    python -m arctic_tpu_torch.app.cli render scene.glb --ibl \
+        --spot 0,8,0,200,200,200,0,-1,0,20,35
 
-The flags of paths the port does not have (--bruteforce, --ibl, --spot,
---raytrace, --devices, --debug-checks) raise RenderError before anything
+--bruteforce renders with the brute-force raster oracle and the deferred
+shade (small frames only; no pair-cap tuning, --cache-sun ignored), --ibl
+adds the opt-in IBL specular term, and each --spot appends a spotlight to
+the loaded or default lights. The flags of paths the port does not have
+(--raytrace, --devices, --debug-checks) raise RenderError before anything
 is loaded or built.
 """
 
@@ -29,9 +34,6 @@ TM_NAMES = {"reinhard": 0, "exposure": 1, "aces": 2}
 # Flags of the JAX package's CLI whose paths are not ported, and where
 # each path stands; any of them set (true, non-empty, non-zero) raises.
 UNPORTED_FLAGS = {
-    "bruteforce": "ROADMAP Queue 1 item 4, the deferred and brute-force frame",
-    "ibl": "ROADMAP Queue 1 item 7, opt-ins",
-    "spot": "ROADMAP Queue 1 item 7, opt-ins",
     "raytrace": "ROADMAP Queue 1 item 8, the ray-traced mode",
     "devices": "ROADMAP Queue 1 item 9, sharding",
     "debug_checks": "ROADMAP Queue 1 item 10, enable_debug_checks",
@@ -75,13 +77,15 @@ def build_parser() -> argparse.ArgumentParser:
                    "pcf_row_cap, ...; the JAX package's field names)")
     r.add_argument("--device", default="cuda",
                    help="torch device of the scene buffers and the frame (default cuda)")
+    r.add_argument("--bruteforce", action="store_true",
+                   help="brute-force raster and deferred shade (small frames only)")
+    r.add_argument("--ibl", action="store_true", help="opt-in IBL specular term")
+    r.add_argument("--spot", action="append", default=[], metavar="X,Y,Z,R,G,B,AX,AY,AZ,IN,OUT",
+                   help="add a spotlight: position, color, axis, inner / outer cone "
+                   "degrees (opt-in). Repeatable.")
     # Not ported: each raises RenderError (UNPORTED_FLAGS).
-    r.add_argument("--bruteforce", action="store_true", help="(not ported)")
     r.add_argument("--devices", type=int, default=0, help="(not ported)")
     r.add_argument("--raytrace", action="store_true", help="(not ported)")
-    r.add_argument("--ibl", action="store_true", help="(not ported)")
-    r.add_argument("--spot", action="append", default=[], metavar="X,Y,Z,R,G,B,AX,AY,AZ,IN,OUT",
-                   help="(not ported)")
     r.add_argument("--debug-checks", action="store_true", help="(not ported)")
     return p
 
@@ -90,7 +94,7 @@ def cmd_render(args) -> int:
     import torch
 
     from arctic_tpu_torch.core.config import config_from_dict
-    from arctic_tpu_torch.core.scene import default_scene_params, default_settings
+    from arctic_tpu_torch.core.scene import PointLights, default_scene_params, default_settings
     from arctic_tpu_torch.io.build import build_buffers
     from arctic_tpu_torch.io.images import load_hdr, save_png
     from arctic_tpu_torch.models import pipeline
@@ -101,15 +105,20 @@ def cmd_render(args) -> int:
         if getattr(args, flag):
             raise RenderError(f"--{flag.replace('_', '-')} takes a path the port does not "
                               f"have ({where})")
-    overrides = {}
+    spots = [[float(x) for x in spec.split(",")] for spec in args.spot]
+    if any(len(v) != 11 for v in spots):
+        raise RenderError("--spot wants X,Y,Z,R,G,B,AX,AY,AZ,IN,OUT")
+    fields = dict(width=args.width, height=args.height, shadow_size=args.shadow_size)
     if args.config:
         import json
 
         with open(args.config) as f:
-            overrides = json.load(f)
-    config = config_from_dict(
-        dict(width=args.width, height=args.height, shadow_size=args.shadow_size, **overrides)
-    )
+            fields.update(json.load(f))
+    if args.bruteforce:
+        fields["force_bruteforce"] = True
+    if args.ibl:
+        fields["ibl_specular"] = True
+    config = config_from_dict(fields)
     device = torch.device(args.device)
 
     if args.procedural:
@@ -149,6 +158,13 @@ def cmd_render(args) -> int:
             eye=torch.tensor(vals[:3], dtype=torch.float32),
             rotation=torch.tensor(vals[3:5], dtype=torch.float32),
         )
+    if spots:
+        # Spotlights join the loaded (or default) lights as cone rows.
+        pl = params.point_lights
+        rows = [(pl.position[i].tolist(), pl.color[i].tolist()) for i in range(pl.count)]
+        rows += [(v[0:3], v[3:6], (v[6:9], v[9], v[10])) for v in spots]
+        params.point_lights = PointLights.from_list(rows, spots=True)
+        config = dataclasses.replace(config, spotlights=True)
     # Explicitly passed flags override the loaded (or default) settings.
     if args.tm is not None:
         settings = dataclasses.replace(settings, tm_method=TM_NAMES[args.tm])
@@ -159,13 +175,14 @@ def cmd_render(args) -> int:
             settings, exposure=torch.tensor(args.exposure, dtype=torch.float32)
         )
 
-    # Size the pair buffers to the scene (binning's cost scales with the
-    # capacity, not the pairs), and shade the known light count.
-    config = pipeline.autotune_pair_caps(buffers, params, config)
-    config = dataclasses.replace(config, static_point_lights=params.point_lights.count)
-    log.info("pair caps: cam=%d shadow=%d", config.pair_cap_cam, config.pair_cap_shadow)
+    if not config.force_bruteforce:
+        # Size the pair buffers to the scene (binning's cost scales with the
+        # capacity, not the pairs), and shade the known light count.
+        config = pipeline.autotune_pair_caps(buffers, params, config)
+        config = dataclasses.replace(config, static_point_lights=params.point_lights.count)
+        log.info("pair caps: cam=%d shadow=%d", config.pair_cap_cam, config.pair_cap_shadow)
 
-    if args.cache_sun:
+    if args.cache_sun and not config.force_bruteforce:
         sun_cache, cache_stats = pipeline.make_sun_cache_builder(config, device)(buffers, params)
         pipeline.check_stats({**cache_stats, "cam_pairs": 0, "cam_pair_cap": 1})
         cached = pipeline.make_cached_renderer_stats(config, device)

@@ -4,13 +4,16 @@ rule that turns a dict of the JAX package's fields into it
 (:func:`config_from_dict`: the CLI's ``--config`` and
 ``utils/convert.render_config`` both use it).
 
-The frame is the JAX package's fused configuration: fused shading, the
-sun-frustum shadow cull and the f16 HDR round are always on, so they are
+The frame is the JAX package's fused frame by default; ``fused_shade=False``
+takes its deferred frame (a per-slot shade table gathered per pixel) and
+``force_bruteforce`` its brute-force frame (the deferred frame over the
+all-triangles-against-all-pixels raster oracle). The sun-frustum shadow
+cull (fused frame only) and the f16 HDR round are always on, so they are
 not options here. The PCF takes the exact f32 runs path unless
 ``pcf_row_cap`` asks for the u16-quantised window table with penumbra
-classification. Pair buffers and the penumbra row buffer keep fixed
-capacities (the pair caps from a formula, or tuned to a camera path), so an
-overflow stays loud through check_stats.
+classification (fused frame only). Pair buffers and the penumbra row
+buffer keep fixed capacities (the pair caps from a formula, or tuned to a
+camera path), so an overflow stays loud through check_stats.
 """
 
 from __future__ import annotations
@@ -59,6 +62,29 @@ class RenderConfig:
     # Overflow is loud: stats carry pcf_rows vs pcf_row_cap.
     pcf_row_cap: int | None = None
 
+    # The brute-force raster oracle in both passes and the deferred shade:
+    # only sane for small frames (no pair buffers, so it cannot overflow).
+    force_bruteforce: bool = False
+
+    # The fused frame (K3 shade rows, K4 G-buffer resolve, K6 / K9 taps).
+    # False: the deferred frame, which rasterizes the camera pass and the
+    # whole (uncull'd) shadow map with K1 and shades from a per-slot table
+    # in plain torch. Ignored under force_bruteforce.
+    fused_shade: bool = True
+
+    # Opt-in IBL specular: color += F(n.wo, F0) * env(reflect(-wo, n)),
+    # the environment read without the skybox's v flip (forward.hlsl:195-206).
+    ibl_specular: bool = False
+
+    # Opt-in spotlights: a light's radiance is scaled by clamp((cos_t -
+    # outer_cos) * inv_range, 0, 1) about PointLights.spot_dir; point rows
+    # (-2, 1) give exactly 1.0.
+    spotlights: bool = False
+
+    # Log a warning naming the pass, its pairs and its cap when a pair
+    # buffer overflowed (a host read of the counts every frame).
+    debug_overflow: bool = False
+
     @property
     def tiles_x(self) -> int:
         return -(-self.width // self.tile_w)
@@ -88,13 +114,8 @@ IGNORED_FIELDS = frozenset({"raster_chunk", "select_chunk", "tiles_per_step", "l
 # Fields of the JAX package's RenderConfig whose other paths are not
 # ported: (the JAX default, which the port's frame is, and where it stands).
 UNPORTED_FIELDS = {
-    "force_bruteforce": (False, "ROADMAP Queue 1 item 4, the deferred and brute-force frame"),
-    "fused_shade": (True, "ROADMAP Queue 1 item 4, the deferred and brute-force frame"),
     "tex_group_caps": (None, "ROADMAP Queue 1 item 6, the grouped tile route"),
-    "ibl_specular": (False, "ROADMAP Queue 1 item 7, opt-ins"),
-    "spotlights": (False, "ROADMAP Queue 1 item 7, opt-ins"),
     "rt_light_shadows": (False, "ROADMAP Queue 1 item 8, the ray-traced mode"),
-    "debug_overflow": (False, "ROADMAP Queue 1 item 5"),
     "hdr_half_round": (True, "the f16 HDR round is always on in the port"),
     "sun_frustum_cull": (True, "the sun-frustum cull is always on in the port"),
     "shadow_tile": (SHADOW_TILE, "the port's shadow tile is 64 x 64, the only one the "

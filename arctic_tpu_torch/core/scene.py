@@ -64,23 +64,57 @@ class DirectionalLight:
         return maths.sun_proj_view(self.position, self.rotation)
 
 
+def point_cone_rows() -> tuple[np.ndarray, np.ndarray]:
+    """The (spot_dir, spot_cos) arrays of a bank of point rows: axis -y and
+    (outer_cos, 1 / (inner_cos - outer_cos)) = (-2, 1), whose cone factor
+    clamps to exactly 1.0 (the JAX package's packing)."""
+    sdir = np.zeros((MAX_POINT_LIGHTS, 3), np.float32)
+    sdir[:, 1] = -1.0
+    scos = np.tile(np.asarray([-2.0, 1.0], np.float32), (MAX_POINT_LIGHTS, 1))
+    return sdir, scos
+
+
 @dataclass
 class PointLights:
-    """Fixed-capacity SoA point-light bank (scene.hpp:88-94, max 16)."""
+    """Fixed-capacity SoA point-light bank (scene.hpp:88-94, max 16).
+
+    Rows may carry a spotlight cone (read under RenderConfig.spotlights):
+    ``spot_dir`` is the unit axis and ``spot_cos`` packs (outer_cos,
+    1 / (inner_cos - outer_cos)); point rows store (-2, 1), whose factor
+    clamps to exactly 1.0. Both are None for a bank built without cones."""
 
     position: torch.Tensor  # (16, 3) f32
     color: torch.Tensor  # (16, 3) f32
     count: int
+    spot_dir: torch.Tensor | None = None  # (16, 3) f32
+    spot_cos: torch.Tensor | None = None  # (16, 2) f32
 
     @staticmethod
-    def from_list(lights) -> "PointLights":
-        """lights: a list of (position, color) rows."""
+    def from_list(lights, spots: bool = False) -> "PointLights":
+        """lights: (position, color) point rows or (position, color, (axis,
+        inner_deg, outer_deg)) spotlight rows; ``spots`` gives an all-point
+        bank the cone fields too (the JAX package's packing, in numpy f32
+        and f64 as it computes it)."""
         n = min(len(lights), MAX_POINT_LIGHTS)
         pos = np.zeros((MAX_POINT_LIGHTS, 3), np.float32)
         col = np.zeros((MAX_POINT_LIGHTS, 3), np.float32)
+        sdir, scos = point_cone_rows()
+        any_spot = spots
         for i in range(n):
             pos[i], col[i] = lights[i][0], lights[i][1]
-        return PointLights(torch.as_tensor(pos), torch.as_tensor(col), n)
+            if len(lights[i]) > 2 and lights[i][2] is not None:
+                axis, inner_deg, outer_deg = lights[i][2]
+                axis = np.asarray(axis, np.float32)
+                sdir[i] = axis / max(np.linalg.norm(axis), 1e-12)
+                inner_c = np.cos(np.radians(inner_deg))
+                outer_c = np.cos(np.radians(outer_deg))
+                scos[i] = (outer_c, 1.0 / max(inner_c - outer_c, 1e-4))
+                any_spot = True
+        return PointLights(
+            torch.as_tensor(pos), torch.as_tensor(col), n,
+            spot_dir=torch.as_tensor(sdir) if any_spot else None,
+            spot_cos=torch.as_tensor(scos) if any_spot else None,
+        )
 
 
 @dataclass

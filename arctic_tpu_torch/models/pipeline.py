@@ -1,5 +1,7 @@
-"""The fused frame — torch port of arctic_tpu/models/pipeline.py
+"""The frame — torch port of arctic_tpu/models/pipeline.py
 (render_frame_stats, build_sun_cache, autotune_pair_caps; core/config.py).
+
+The fused frame (the default):
 
 shadow pass (sun-cull rect, binning, K1 depth-only raster) -> shade-row
 table (K3; for a Geometry without slot_static_rows the full stack in plain
@@ -18,6 +20,15 @@ tile-major pixel stream, and K8 evaluates the compacted penumbra rows. A
 SunCache (build_sun_cache) replaces the shadow pass, table and pyramid
 while the sun and the geometry stay put.
 
+The deferred frame (``fused_shade=False``): the whole shadow map and the
+camera pass through binning + K1, a per-slot shade table (build_shade_table)
+gathered per pixel by slot id, the material tap from the same combined
+quad rows K6 reads, the exact f32 runs PCF at the pixel's light-space
+position, the same lights and composite; all of it but K1 in plain torch.
+The brute-force frame (``force_bruteforce``) is the deferred frame over the
+raster oracle (ops/raster.rasterize_bruteforce) in both passes: no kernel.
+The opt-ins (``spotlights``, ``ibl_specular``) act in both frames.
+
 The frame runs eagerly on the device of the scene buffers. Per-frame
 constants (the camera and sun matrices, the light count, post-process
 settings) are evaluated on the host from the params' host tensors, as the
@@ -32,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 
 import torch
 
@@ -45,10 +57,18 @@ from arctic_tpu_torch.core.scene import (
     SunCache,
 )
 from arctic_tpu_torch.ops import binning, cull, raster, raster_tiles, shadow, sky, tonemap
-from arctic_tpu_torch.ops.pbr import dot_cf, outgoing_radiance_cf
-from arctic_tpu_torch.ops.sampling import quad_index, tap_resolve, tile_index, tile_tap_resolve
+from arctic_tpu_torch.ops.pbr import dot_cf, fresnel_schlick, outgoing_radiance_cf
+from arctic_tpu_torch.ops.sampling import (
+    quad_index,
+    sample_atlas_multi,
+    tap_resolve,
+    tile_index,
+    tile_tap_resolve,
+)
 from arctic_tpu_torch.utils.errors import RenderError
 from arctic_tpu_torch.utils.profiling import named_scope
+
+log = logging.getLogger(__name__)
 
 
 def use_full_f32() -> None:
@@ -108,22 +128,49 @@ def sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config: RenderConfig):
     )
 
 
+def camera_setup(wc, tri_valid, cam_pv, config: RenderConfig) -> raster.TriSetup:
+    """The camera pass's triangle setup (forward_pass.cpp: back faces culled)
+    from the world corners: near clip, projection, raster planes."""
+    clipped = raster.near_clip_corners(corners_clip(wc, cam_pv), tri_valid)
+    return raster.setup_screen_triangles(clipped, config.width, config.height, cull="back")
+
+
+def fused(config: RenderConfig) -> bool:
+    """Whether ``config`` renders the fused frame (JAX pipeline.py:1002)."""
+    return config.fused_shade and not config.force_bruteforce
+
+
+def rasterize(setup: raster.TriSetup, height: int, width: int, config: RenderConfig,
+              kind: str = "cam", rect=None):
+    """One pass's visibility (JAX pipeline.py:118-141): (zbuf (H, W), ibuf
+    (H, W) or None for the depth-only shadow pass, pairs (0-dim device
+    tensor), pair cap). The brute-force oracle has no pair buffer: 0 pairs
+    of a cap of 1, and no kernel."""
+    if config.force_bruteforce:
+        zbuf, ibuf = raster.rasterize_bruteforce(setup, height, width)
+        pairs = torch.zeros((), dtype=torch.int32, device=setup.valid.device)
+        return zbuf, None if kind == "shadow" else ibuf, pairs, 1
+    tile = SHADOW_TILE if kind == "shadow" else None
+    zbuf, ibuf, pairs = raster_tiles.rasterize_tiled(
+        setup, height, width, config, tile_h=tile, tile_w=tile,
+        depth_only=kind == "shadow", rect=rect,
+    )
+    return zbuf, ibuf, pairs, config.pair_capacity(setup.capacity, kind)
+
+
 def shadow_pass(geom: Geometry, sun_clip, config: RenderConfig, cull_rect=None):
     """Depth-only pass from the sun's view (shadow_map_pass.cpp:113-169),
     front faces culled, over the cull rect's tiles (None: all of them);
-    returns (shadow map (S, S), pairs, pair cap). The map is a view of K1's
-    row-major (tile-padded) depth buffer with its row pitch: the quantised
-    path's table build reads it in place, which is the JAX package's
-    lut_rows raster (raster_tiles.py:1007)."""
+    returns (shadow map (S, S), pairs, pair cap). On the binned path the map
+    is a view of K1's row-major (tile-padded) depth buffer with its row
+    pitch: the quantised path's table build reads it in place, which is the
+    JAX package's lut_rows raster (raster_tiles.py:1007)."""
     tri_valid = torch.arange(geom.capacity, device=geom.tri_trs.device) < geom.num_tris
     clipped = raster.near_clip_corners(sun_clip, tri_valid)
     s = config.shadow_size
     setup = raster.setup_screen_triangles(clipped, s, s, cull="front")
-    zbuf, _, pairs = raster_tiles.rasterize_tiled(
-        setup, s, s, config, tile_h=SHADOW_TILE, tile_w=SHADOW_TILE,
-        depth_only=True, rect=cull_rect,
-    )
-    return zbuf, pairs, config.pair_capacity(setup.capacity, "shadow")
+    zbuf, _, pairs, cap = rasterize(setup, s, s, config, "shadow", cull_rect)
+    return zbuf, pairs, cap
 
 
 def shade_row_planes(setup: raster.TriSetup, geom: Geometry, wc, lsp) -> torch.Tensor:
@@ -320,16 +367,30 @@ def shade_gbuffer(
 
     with named_scope("pbr_lights"):
         hdr = _light_and_composite(
-            params, config, covered, background, wp, n, wo, lit, base_color,
+            buffers, params, config, covered, background, wp, n, wo, lit, base_color,
             metalness, roughness,
         )
     return hdr, pcf_rows
 
 
+def env_rows_bf16(buffers: SceneBuffers) -> torch.Tensor:
+    """The environment's (n_env, 128) bf16 quad rows, the table the JAX
+    package's sky and IBL lookups read: the tail of the merged table, or,
+    on the tile route, the tile atlas's f32 copy rounded to bf16 as the
+    build rounds it."""
+    atlas, env = buffers.atlas, buffers.environment
+    if atlas.tiles is None:
+        return atlas.combined_env_rows[-env.num_rows :]
+    rows = atlas.tiles[atlas.tiles_ntex : atlas.tiles_ntex + env.num_rows]
+    return rows.view(torch.float32).to(torch.bfloat16)
+
+
 def _light_and_composite(
-    params, config, covered, background, wp, n, wo, lit, base_color, metalness, roughness
+    buffers, params, config, covered, background, wp, n, wo, lit, base_color, metalness,
+    roughness,
 ):
-    """Sun + point lights + ambient, then the skybox composite."""
+    """Sun + point lights (spotlight cones with config.spotlights) + ambient
+    (+ IBL specular with config.ibl_specular), then the skybox composite."""
     dev = wp.device
     sun_dir = params.sun.direction().to(dev)
     lo = lit * outgoing_radiance_cf(
@@ -347,11 +408,138 @@ def _light_and_composite(
         dist = torch.clamp(torch.sqrt(dot_cf(ldir, ldir)), min=1e-12)
         wi = ldir / dist
         radiance = lights.color[i].to(dev)[:, None, None] / (dist * dist)
+        if config.spotlights and lights.spot_dir is not None:
+            # -wi is the light-to-fragment direction (JAX pipeline.py:901-908).
+            outer, inv_range = lights.spot_cos[i].tolist()
+            cos_t = -dot_cf(wi, lights.spot_dir[i].to(dev)[:, None, None])
+            radiance = radiance * torch.clamp((cos_t - outer) * inv_range, 0.0, 1.0)
         lo = lo + lit * outgoing_radiance_cf(
             n, wo, wi, radiance, base_color, metalness, roughness
         )
     color = lo + float(params.ambient) * base_color
+    if config.ibl_specular:
+        # F(n.wo, F0) * env(reflect(-wo, n)) (JAX pipeline.py:920-932).
+        ndotwo = dot_cf(n, wo)
+        refl = 2.0 * ndotwo * n - wo
+        env = buffers.environment
+        env_c = torch.stack(sky.sample_environment_ibl_cf(
+            env_rows_bf16(buffers), env.block_grid, env.region, refl[0], refl[1], refl[2]
+        ))
+        f0 = 0.04 + (base_color - 0.04) * metalness
+        color = color + fresnel_schlick(torch.clamp(ndotwo, min=0.0), f0) * env_c
     return torch.where(covered[None], color, background)
+
+
+# Lanes of the deferred frame's shade table (build_shade_table).
+SHADE_TABLE_LANES = 74
+
+
+def build_shade_table(setup: raster.TriSetup, geom: Geometry, wc) -> torch.Tensor:
+    """The deferred frame's per-slot shading values (JAX pipeline.py:239-281),
+    component-major (SHADE_TABLE_LANES, P) so that a per-pixel gather by
+    slot id gives channel-first planes. Row k holds lane k of the JAX
+    table: [0:9) the perspective-barycentric planes (edge_c * inv_area2 /
+    w_c), [9:51) three 14-value corner blocks (world position, n, t, b, uv)
+    blended through the near-clip corner weights, [51:63) the material's
+    atlas regions, [63:67) its metal-roughness constant, [67:70) its normal
+    constant. Rows [70:74) hold the combined-atlas region the port samples
+    (the JAX row holds the unread normal alpha at 70 and zeros after).
+    Clip slot s is triangle s % T: the tri-major planes are broadcast over
+    a (2, T) view of the slots."""
+    p, t = setup.capacity, geom.capacity
+    if p != 2 * t:
+        raise RenderError("clip slots must be [primary; secondary] tri-major")
+    table = torch.empty((SHADE_TABLE_LANES, p), dtype=torch.float32, device=geom.tri_trs.device)
+
+    def slots(rows):  # (k, p) view of the slots as (k, 2, T)
+        return rows.view(rows.shape[0], 2, t)
+
+    for c in range(3):
+        scale = setup.inv_area2 / setup.w[c]
+        table[3 * c : 3 * c + 3] = torch.stack(list(setup.edges[c])) * scale
+    sa = geom.tri_static_attrs
+    att = [torch.stack([*wc[k], *sa[11 * k : 11 * k + 11]])[:, None] for k in range(3)]
+    for c in range(3):
+        cb = [setup.cb[c][k].reshape(1, 2, t) for k in range(3)]
+        slots(table[9 + 14 * c : 23 + 14 * c])[:] = cb[0] * att[0] + cb[1] * att[1] + cb[2] * att[2]
+    slots(table[51:74])[:] = geom.tri_matrow[:, None]
+    return table
+
+
+def shade(
+    buffers: SceneBuffers, params: SceneParams, setup: raster.TriSetup, ibuf: torch.Tensor,
+    wc, shadow_map: torch.Tensor, config: RenderConfig,
+) -> torch.Tensor:
+    """Deferred forward.hlsl ps_main (ps_main :208-235; JAX pipeline.py:
+    438-576) over the (H, W) visibility buffer -> HDR (3, H, W): one table
+    gather per pixel, perspective-correct barycentrics, the material tap
+    (sample_atlas_multi), the PCF at the pixel's light-space position, then
+    the fused frame's lights and composite. The tile atlas has no sampler
+    here, as in the JAX package (its per-slot tables would be GBs)."""
+    atlas, env = buffers.atlas, buffers.environment
+    if atlas.tiles is not None:
+        raise RenderError(
+            "deferred/brute-force shading has no tile-atlas sampler (the per-slot "
+            "quad tables are skipped at reference texture scale); render with the "
+            "fused path instead"
+        )
+    h, w = ibuf.shape
+    dev = ibuf.device
+    covered = ibuf >= 0
+    table = build_shade_table(setup, buffers.geometry, wc)
+    r = table[:, torch.clamp(ibuf, min=0).reshape(-1).long()].view(SHADE_TABLE_LANES, h, w)
+    px, py = raster.pixel_centers(h, w, dev)
+
+    bw = [r[3 * c] * px + r[3 * c + 1] * py + r[3 * c + 2] for c in range(3)]
+    den = bw[0] + bw[1] + bw[2]
+    den = torch.where(den == 0, 1.0, den)
+    b = [x / den for x in bw]
+    a = b[0] * r[9:23] + b[1] * r[23:37] + b[2] * r[37:51]
+    wp, n_v, t_v, b_v = a[0:3], a[3:6], a[6:9], a[9:12]
+
+    # Gather hygiene, as in the fused frame: uncovered pixels tap one texel.
+    def cov(plane, fallback):
+        return torch.where(covered, plane, fallback)
+
+    tex = sample_atlas_multi(
+        atlas, cov(r[70], 0.0), cov(r[71], 0.0), cov(r[72], 1.0), cov(r[73], 1.0),
+        cov(a[12], 0.0), cov(a[13], 0.0),
+    )
+    slot_base = {s: 4 * i for i, s in enumerate(atlas.combined_slots)}
+    base_color = tex[slot_base[0] : slot_base[0] + 3]
+    nm = tex[slot_base[1] : slot_base[1] + 3] if 1 in slot_base else r[67:70]
+    if 2 in slot_base:
+        metalness = tex[slot_base[2] + 2][None]
+        roughness = tex[slot_base[2] + 1][None]
+    else:
+        metalness = r[65:66]  # mr const blue
+        roughness = r[64:65]  # mr const green
+
+    # get_normal (forward.hlsl:104-112): green flip, [0,1]->[-1,1], TBN.
+    nm = torch.cat([nm[0:1], 1.0 - nm[1:2], nm[2:3]])
+    nm = nm * 2.0 - 1.0
+    n = t_v * nm[0:1] + b_v * nm[1:2] + n_v * nm[2:3]
+    n = n / torch.sqrt(dot_cf(n, n))
+
+    with named_scope("pcf_shadow"):
+        pv = params.sun.proj_view().tolist()
+        lsp = [pv[i][0] * wp[0] + pv[i][1] * wp[1] + pv[i][2] * wp[2] + pv[i][3]
+               for i in range(4)]
+        lit = (1.0 - shadow.pcf_shadow(shadow_map, lsp))[None]
+
+    eye = params.camera.eye.tolist()
+    wo = torch.stack([eye[i] - wp[i] for i in range(3)])
+    wo = wo / torch.sqrt(dot_cf(wo, wo))
+
+    dx, dy, dz = sky.camera_ray_dirs_cf(params.camera, px, py, config.width, config.height)
+    background = torch.stack(sky.sample_environment_cf(
+        env_rows_bf16(buffers), env.block_grid, env.region, dx, dy, dz
+    ))
+    with named_scope("pbr_lights"):
+        return _light_and_composite(
+            buffers, params, config, covered, background, wp, n, wo, lit, base_color,
+            metalness, roughness,
+        )
 
 
 def render_frame_stats(
@@ -362,9 +550,11 @@ def render_frame_stats(
 
     stats: cam/shadow pairs and penumbra rows (0-dim device tensors) and
     their capacities; more than the capacity means a buffer overflowed and
-    the frame is wrong — check_stats() raises then. pcf_row_cap is 1 when
-    classification is off (pcf_rows is then 0); tex_fb_rows of the JAX
-    package is reported inactive (0 of 1), as its default config does.
+    the frame is wrong — check_stats() raises then (``debug_overflow`` also
+    logs a warning from here). pcf_row_cap is 1 when classification is off
+    (pcf_rows is then 0); the brute-force frame reports 0 pairs of a cap of
+    1; tex_fb_rows of the JAX package is reported inactive (0 of 1), as its
+    default config does.
 
     ``sun_cache`` (a build_sun_cache result) replaces the shadow pass, the
     window table and the pyramid while the sun and the geometry are
@@ -374,6 +564,7 @@ def render_frame_stats(
     dev = buffers.device
     sun_pv = params.sun.proj_view()
     cam_pv = params.camera.proj_view()
+    is_fused = fused(config)
     sun_lut = sun_pyr = lut_y_range = None
 
     # named_scope ranges name the frame graph's passes in profiler traces
@@ -383,7 +574,10 @@ def render_frame_stats(
         sun_clip = corners_clip(wc, sun_pv)
         tri_valid = torch.arange(geom.capacity, device=dev) < geom.num_tris
         if sun_cache is None:
-            cull_rect, lut_y_range = sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
+            # The sun-frustum cull applies to the fused frame only (JAX :1026).
+            cull_rect = None
+            if is_fused:
+                cull_rect, lut_y_range = sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
             shadow_map, sh_pairs, sh_cap = shadow_pass(geom, sun_clip, config, cull_rect)
         else:
             shadow_map = sun_cache.shadow_map
@@ -391,17 +585,24 @@ def render_frame_stats(
             sh_pairs, sh_cap = torch.zeros((), dtype=torch.int32, device=dev), 1
 
     with named_scope("forward_visibility"):
-        clipped = raster.near_clip_corners(corners_clip(wc, cam_pv), tri_valid)
-        setup = raster.setup_screen_triangles(clipped, config.width, config.height, cull="back")
-        shade_rows = build_shade_rows(setup, geom, wc, tuple(c[:3] for c in sun_clip))
-        ibuf, gbuf, cam_pairs = raster_tiles.raster_gbuffer(
-            setup, shade_rows, config.height, config.width, config
-        )
+        setup = camera_setup(wc, tri_valid, cam_pv, config)
+        if is_fused:
+            shade_rows = build_shade_rows(setup, geom, wc, tuple(c[:3] for c in sun_clip))
+            ibuf, gbuf, cam_pairs = raster_tiles.raster_gbuffer(
+                setup, shade_rows, config.height, config.width, config
+            )
+            cam_cap = config.pair_capacity(setup.capacity, "cam")
+        else:
+            _, ibuf, cam_pairs, cam_cap = rasterize(setup, config.height, config.width, config)
     with named_scope("forward_shade_skybox"):
-        hdr, pcf_rows = shade_gbuffer(
-            buffers, params, gbuf, ibuf >= 0, shadow_map, config, sun_lut, sun_pyr,
-            lut_y_range,
-        )
+        if is_fused:
+            hdr, pcf_rows = shade_gbuffer(
+                buffers, params, gbuf, ibuf >= 0, shadow_map, config, sun_lut, sun_pyr,
+                lut_y_range,
+            )
+        else:
+            hdr = shade(buffers, params, setup, ibuf, wc, shadow_map, config)
+            pcf_rows = torch.zeros((), dtype=torch.int32, device=dev)
 
     with named_scope("post_process"):
         # R16G16B16A16_FLOAT storage rounding (renderer.cpp:128-144).
@@ -411,7 +612,7 @@ def render_frame_stats(
 
     stats = {
         "cam_pairs": cam_pairs,
-        "cam_pair_cap": config.pair_capacity(setup.capacity, "cam"),
+        "cam_pair_cap": cam_cap,
         "shadow_pairs": sh_pairs,
         "shadow_pair_cap": sh_cap,
         "pcf_rows": pcf_rows,
@@ -419,7 +620,20 @@ def render_frame_stats(
         "tex_fb_rows": 0,
         "tex_fb_cap": 1,
     }
+    if config.debug_overflow:
+        warn_overflow(stats)
     return img.contiguous(), stats
+
+
+def warn_overflow(stats) -> None:
+    """Log a warning for each pass whose pair buffer overflowed (a host
+    read of the counts: the JAX package prints them from the device)."""
+    for pass_name in ("cam", "shadow"):
+        pairs = int(stats[f"{pass_name}_pairs"])
+        cap = int(stats[f"{pass_name}_pair_cap"])
+        if pairs > cap:
+            log.warning("%s pass: %d tile-triangle pairs > capacity %d (overflowing "
+                        "pairs are dropped: the frame misses fragments)", pass_name, pairs, cap)
 
 
 def render_frame(buffers, params, settings, config: RenderConfig, sun_cache=None) -> torch.Tensor:
@@ -429,9 +643,9 @@ def render_frame(buffers, params, settings, config: RenderConfig, sun_cache=None
 
 
 def pcf_row_capacity(config: RenderConfig) -> int:
-    """The penumbra row capacity of this config (1 = classification off;
-    pcf_rows is then always 0)."""
-    if config.pcf_row_cap is None:
+    """The penumbra row capacity of this config (1 = classification off,
+    as it is outside the fused frame; pcf_rows is then always 0)."""
+    if config.pcf_row_cap is None or not fused(config):
         return 1
     pn = config.num_tiles * config.tile_h * config.tile_w
     return shadow.effective_row_cap(pn, config.pcf_row_cap)
@@ -481,7 +695,8 @@ def check_stats(stats) -> None:
 def measure_pair_counts(buffers: SceneBuffers, params, config: RenderConfig) -> tuple[int, int]:
     """Actual (camera, shadow) pair counts of a frame, with no sort and no
     raster: the front end and the tile footprints of render_frame_stats
-    (the shadow count inside the sun-cull rect). ``params`` is one
+    (the shadow count inside the sun-cull rect of the fused frame, over the
+    whole map otherwise). ``params`` is one
     SceneParams or a list of them (a camera path): a list gives the
     element-wise max."""
     use_full_f32()
@@ -493,16 +708,13 @@ def measure_pair_counts(buffers: SceneBuffers, params, config: RenderConfig) -> 
     cam = sh = 0
     for p in params if isinstance(params, (list, tuple)) else [params]:
         cam_pv, sun_pv = p.camera.proj_view(), p.sun.proj_view()
-        setup = raster.setup_screen_triangles(
-            raster.near_clip_corners(corners_clip(wc, cam_pv), tri_valid),
-            config.width, config.height, cull="back",
-        )
+        setup = camera_setup(wc, tri_valid, cam_pv, config)
         c = binning.count_pairs(setup, config.tiles_x, config.tiles_y, config.tile_w,
                                 config.tile_h)
         sh_setup = raster.setup_screen_triangles(
             raster.near_clip_corners(corners_clip(wc, sun_pv), tri_valid), s, s, cull="front"
         )
-        rect, _ = sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
+        rect = sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)[0] if fused(config) else None
         h = binning.count_pairs(sh_setup, n_sh, n_sh, SHADOW_TILE, SHADOW_TILE, rect=rect)
         cam, sh = max(cam, int(c)), max(sh, int(h))
     return cam, sh

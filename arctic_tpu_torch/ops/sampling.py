@@ -1,9 +1,10 @@
 """Texture sampling with D3D linear-wrap semantics — torch port of the
-parts of arctic_tpu/ops/sampling.py the fused frame uses, around two CUDA
-kernels: K6 ``tap_resolve`` (csrc/tap_resolve.cu) for _tap_resolve_kernel,
+parts of arctic_tpu/ops/sampling.py the frames use: around two CUDA
+kernels, K6 ``tap_resolve`` (csrc/tap_resolve.cu) for _tap_resolve_kernel,
 the merged bf16 quad table of small texture sets, and K9
 ``tile_tap_resolve`` (csrc/tile_tap_resolve.cu) for _tile_tap_resolve_kernel,
-the u16 tile atlas of reference-scale texture sets.
+the u16 tile atlas of reference-scale texture sets (the fused frame); and
+``sample_atlas_multi`` in plain torch (the deferred frame).
 
 Bilinear filtering is ``t = uv * size - 0.5``, texel pair floor(t) and
 floor(t) + 1, fractional lerp, with WRAP applied per texel in region-local
@@ -50,6 +51,32 @@ def quad_index(block_grid, ry, rx, rh, rw, u, v):
     copy = (ys % 2) * 2 + xs % 2
     q = (copy * bh + ys // 2) * bw + xs // 2
     return q, fx, fy
+
+
+def sample_atlas_multi(atlas, ry, rx, rh, rw, u, v):
+    """All of a material's texture slots at (u, v) in one quad gather: the
+    JAX package's sample_atlas_multi, read from the combined quad rows the
+    fused frame's K6 reads (TextureAtlas.combined_env_rows) instead of a
+    per-slot atlas. The build combines a material's non-constant slots
+    only where they share one size, and broadcasts a constant slot to it,
+    so the combined region gives each slot's texel indices and fractions
+    (a constant slot samples to its constant at any size): the same bf16
+    texels, lerped by the same f32 operations.
+
+    Region fields are the combined region's (y, x, h, w) planes, u and v f32
+    planes of the same shape. Returns (4 * len(combined_slots), ...) f32
+    planes: slot combined_slots[i]'s RGBA at [4i, 4i + 4)."""
+    q, fx, fy = quad_index(atlas.combined_block_grid, ry, rx, rh, rw, u, v)
+    c4 = atlas.quad_width
+    per = 128 // c4
+    rows = atlas.combined_env_rows
+    quads = rows[:, : per * c4].unflatten(1, (per, c4))  # (R, per, c4) view
+    win = quads[(q // per).long(), (q % per).long()].to(torch.float32)  # (..., c4)
+    c = c4 // 4
+    fx, fy = fx[..., None], fy[..., None]
+    top = win[..., 0:c] + (win[..., c : 2 * c] - win[..., 0:c]) * fx
+    bot = win[..., 2 * c : 3 * c] + (win[..., 3 * c :] - win[..., 2 * c : 3 * c]) * fx
+    return (top + (bot - top) * fy).movedim(-1, 0)
 
 
 # The quad widths K6 takes (one kernel instantiation each): a multiple of 4

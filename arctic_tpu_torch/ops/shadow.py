@@ -483,6 +483,15 @@ def pcf_resolve(lut: torch.Tensor, start_y: torch.Tensor, start_x: torch.Tensor)
 # --------------------------------------------------------------------------
 
 
+def pcf_shadow(shadow_map: torch.Tensor, light_space_pos) -> torch.Tensor:
+    """Fraction of occluded PCF taps in [0, 1] at clip-space positions under
+    the sun's proj_view, ``light_space_pos`` = (x, y, z, w) planes: the
+    divide by w, then pcf_shadow_proj's exact f32 runs path (the deferred
+    frame's PCF)."""
+    x, y, z, w = light_space_pos
+    return pcf_shadow_proj(shadow_map, x / w, y / w, z / w)
+
+
 def pcf_shadow_proj(
     shadow_map: torch.Tensor, x, y, z, care=None, row_cap: int | None = None,
     with_rows: bool = False, lut=None, pyramid=None, lut_y_range=None,

@@ -91,7 +91,11 @@ def scene_params(jp) -> SceneParams:
     c, s, pl = jp.camera, jp.sun, jp.point_lights
     camera = Camera(*(tensor(getattr(c, f)) for f in ("eye", "rotation", "aspect", "fov_y", "z_near", "z_far")))
     sun = DirectionalLight(tensor(s.position), tensor(s.rotation), tensor(s.color))
-    lights = PointLights(tensor(pl.position), tensor(pl.color), int(np.asarray(pl.count)))
+    lights = PointLights(
+        tensor(pl.position), tensor(pl.color), int(np.asarray(pl.count)),
+        spot_dir=None if pl.spot_dir is None else tensor(pl.spot_dir),
+        spot_cos=None if pl.spot_cos is None else tensor(pl.spot_cos),
+    )
     return SceneParams(camera=camera, ambient=tensor(jp.ambient), sun=sun, point_lights=lights)
 
 

@@ -15,13 +15,14 @@ import numpy as np
 import torch
 
 from arctic_tpu_torch.core.scene import (
+    MAX_POINT_LIGHTS,
     Camera,
     DirectionalLight,
     PointLights,
     SceneParams,
     Settings,
+    point_cone_rows,
 )
-from arctic_tpu_torch.utils.errors import RenderError
 
 
 def _f32(x) -> torch.Tensor:
@@ -47,7 +48,10 @@ def params_to_dict(params: SceneParams, settings: Settings) -> dict:
             "color": params.sun.color.tolist(),
         },
         "point_lights": [
-            {"position": pl.position[i].tolist(), "color": pl.color[i].tolist()}
+            {"position": pl.position[i].tolist(), "color": pl.color[i].tolist(),
+             # The raw cone packing, for banks built with cones.
+             **({} if pl.spot_dir is None else
+                {"spot_dir": pl.spot_dir[i].tolist(), "spot_cos": pl.spot_cos[i].tolist()})}
             for i in range(pl.count)
         ],
         "settings": {
@@ -59,10 +63,6 @@ def params_to_dict(params: SceneParams, settings: Settings) -> dict:
 
 
 def params_from_dict(d: dict) -> tuple[SceneParams, Settings]:
-    pls = d.get("point_lights", [])
-    if any("spot_dir" in pl for pl in pls):
-        raise RenderError("the state holds spotlights, which the port does not have "
-                          "(ROADMAP Queue 1 item 7, opt-ins)")
     c = d["camera"]
     camera = Camera(
         eye=_f32(c["eye"]), rotation=_f32(c["rotation"]), aspect=_f32(c["aspect"]),
@@ -72,11 +72,21 @@ def params_from_dict(d: dict) -> tuple[SceneParams, Settings]:
     sun = DirectionalLight(
         position=_f32(s["position"]), rotation=_f32(s["rotation"]), color=_f32(s["color"])
     )
+    pls = d.get("point_lights", [])
+    lights = PointLights.from_list([(pl["position"], pl["color"]) for pl in pls])
+    if any("spot_dir" in pl for pl in pls):
+        # The raw cone packing, verbatim (round-trip exact); rows without
+        # one are point rows.
+        sdir, scos = point_cone_rows()
+        for i, pl in enumerate(pls[:MAX_POINT_LIGHTS]):
+            if "spot_dir" in pl:
+                sdir[i], scos[i] = pl["spot_dir"], pl["spot_cos"]
+        lights.spot_dir, lights.spot_cos = torch.as_tensor(sdir), torch.as_tensor(scos)
     params = SceneParams(
         camera=camera,
         ambient=_f32(d.get("ambient", 0.1)),
         sun=sun,
-        point_lights=PointLights.from_list([(pl["position"], pl["color"]) for pl in pls]),
+        point_lights=lights,
     )
     st = d.get("settings", {})
     settings = Settings(

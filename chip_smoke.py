@@ -15,8 +15,11 @@ Geometry without slot_static_rows (K10 transpose_pack_rows in place of K3).
 The f32 window-table PCF (shadow.pcf_shadow_proj(use_lut=True,
 quant=False), K12 window_lut) is driven on a real-size frame's planes. K11
 pack_shade_rows_tm and K13 pcf_resolve have no caller in the frame (as in
-the JAX package) and are held against K3 and K8. Phases, each of which
-raises on failure (exit code != 0):
+the JAX package) and are held against K3 and K8. The deferred frame
+(fused_shade=False: K1 and plain torch), the brute-force frame
+(force_bruteforce: no kernel) and the opt-in lights (spotlights,
+ibl_specular) run after the CLI phase (3f-3h, 4h, 4i). Phases, each of
+which raises on failure (exit code != 0):
 
 1. device check: refuses to run without CUDA (no CPU fallback); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -77,6 +80,31 @@ raises on failure (exit code != 0):
    default device: K1, K3, K4 and K6 must launch, both PNGs (decoded by
    io/images) must equal the in-process frame of the loaded scene bit for
    bit and be >= 40 dB against that scene's f64 oracle;
+3f. the entry frame with force_bruteforce: no kernel launches, within 1
+   LSB of the port's CPU brute-force frame and of the default entry frame
+   on < 1% of the values, >= 40 dB against the oracle;
+3g. the entry frame with fused_shade=False: K1 twice and no other kernel,
+   its ibuf equal to the brute-force raster's on the same setup, its frame
+   within 1 LSB of 3f's;
+3h. Cornell with the point light and a spotlight (spotlights=True), fused
+   and deferred, then with ibl_specular=True as well: each pair within 1
+   LSB on < 1% of the values wherever their PCF shadow factors agree
+   (a pixel where one of the 25 taps compares the other way may move up
+   to 3 LSB under the bright spot, on at most 0.01% of the pixels), the
+   fused spot frame >= 40 dB against the
+   oracle with the cone, IBL moving the frame by > 2 LSB somewhere; then
+   the CLI with --bruteforce (no kernel) and with --ibl --spot on the
+   GLB of 4g, each PNG bit-equal to the in-process frame of its config;
+4h. the deferred frame at real size: the default scene and config with
+   fused_shade=False, pair caps tuned for it (the shadow pass uncull'd),
+   the fly-through (K1 twice a frame, nothing else), each frame within 1
+   LSB of the default path's frame at its viewpoint on >= 99% of the
+   pixels, frame 19 gated against bench_golden.png by the default path's
+   rule;
+4i. the opt-ins at real size on the default path (ibl_specular,
+   spotlights, the bench rig plus a spotlight above the nave): the
+   fly-through (K1, K3, K4, K6), frame 0 within 1 LSB of the deferred frame
+   with the same options on >= 99% of the pixels;
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded): bit-exact
    equality, CUDA-event times of kernel and plain version at the real-size
@@ -154,6 +182,17 @@ TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolv
 FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve")
 # Kernels with no caller in any frame, as in the JAX package.
 NO_FRAME = ("pack_shade_rows_tm", "pcf_resolve")
+# The deferred frame's only kernel; the brute-force frame launches none.
+DEFERRED_PATH = ("raster_tiles",)
+# The opt-in rig of the entry phases: the parity red point light and a
+# spotlight over the Cornell boxes aimed down (tests/test_spotlights.py:29-30);
+# the spotlight added to the real-size rig.
+POINT = ((0.0, 1.0, 0.0), (10.0, 0.0, 0.0))
+SPOT = ((0.0, 6.0, -5.0), (120.0, 120.0, 120.0), ((0.0, -1.0, 0.0), 20.0, 35.0))
+REAL_SPOT = ((0.0, 8.0, 0.0), (200.0, 200.0, 200.0), ((0.0, -1.0, 0.0), 20.0, 35.0))
+# The deferred real-size frames' share of pixels within 1 LSB of the
+# default path's frame at the same viewpoint.
+DEFERRED_NEAR_SHARE = 0.99
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -195,7 +234,9 @@ def full_stack_buffers(bufs):
     return dataclasses.replace(bufs, geometry=geom)
 
 
-def golden_frame(scene, params, settings, config):
+def golden_frame(scene, params, settings, config, lights=None):
+    """The f64 oracle's frame; ``lights``: light rows with their cones (the
+    params' point rows by default)."""
     import numpy as np
 
     from arctic_tpu_torch.models import golden
@@ -203,11 +244,11 @@ def golden_frame(scene, params, settings, config):
     meshes, objects, materials, env = scene
     cam = params.camera
     tris, mats = golden.golden_scene(meshes, objects, materials)
-    n = params.point_lights.count
-    lights = [
-        (params.point_lights.position[i].tolist(), params.point_lights.color[i].tolist())
-        for i in range(n)
-    ]
+    if lights is None:
+        lights = [
+            (params.point_lights.position[i].tolist(), params.point_lights.color[i].tolist())
+            for i in range(params.point_lights.count)
+        ]
     return golden.render(
         tris, mats, env.astype(np.float64),
         dict(eye=cam.eye.tolist(), rotation=cam.rotation.tolist(), aspect=float(cam.aspect),
@@ -363,6 +404,269 @@ def run_cli():
         raise RuntimeError(f"the CLI's frame PSNR {db:.2f} dB < 40 dB")
 
 
+def lsb_gate(img, ref, label: str, what: str) -> None:
+    """Fail unless ``img`` is within 1 u8 LSB of ``ref`` on < 1% of its
+    channel values (the JAX package's fused-vs-brute-force bound)."""
+    import numpy as np
+
+    d = np.abs(img.astype(np.int32) - ref.astype(np.int32))
+    frac = float((d > 0).mean())
+    log(f"{label} frame vs {what}: max {d.max()} LSB on {frac:.4%} of values")
+    if d.max() > 1 or frac >= 0.01:
+        raise RuntimeError(f"{label} frame differs from {what} beyond 1 LSB / 1%")
+
+
+def entry_frame(config, params=None, label="", path=None, absent=None):
+    """The entry scene on the card with ``config`` (and ``params``), launch
+    counts zeroed right before and read right after: every kernel of
+    ``path`` must launch and none of ``absent`` (default: every other
+    kernel). Returns (img on the host, stats, counts, scene, bufs, params,
+    settings)."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    _, scene, bufs, entry_params, settings = entry_scene("cuda")
+    params = params or entry_params
+    kernels.reset_launch_counts()
+    img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"{label} frame launches: {counts}")
+    if absent is None:
+        absent = tuple(k for k in counts if k not in path)
+    check_launches(counts, path, label, absent)
+    pipeline.check_stats(stats)
+    return img.cpu().numpy(), stats, counts, scene, bufs, params, settings
+
+
+def run_entry_bruteforce(oracle, default_img):
+    """3f: the entry frame with force_bruteforce on the card: no kernel
+    launches; within 1 LSB of the port's CPU brute-force frame and of the
+    default entry frame on < 1%, >= 40 dB against the f64 oracle. Returns
+    the frame."""
+    import dataclasses
+
+    import numpy as np
+
+    from arctic_tpu_torch.models import golden, pipeline
+
+    label = "brute-force entry"
+    config = dataclasses.replace(entry_scene("cpu")[0], force_bruteforce=True)
+    img, stats, _, _, _, params, settings = entry_frame(config, label=label, path=())
+    s = {k: int(v) for k, v in stats.items()}
+    if s["cam_pair_cap"] != 1 or s["cam_pairs"] != 0:
+        raise RuntimeError(f"{label} stats report a pair buffer: {s}")
+    img_cpu, _ = pipeline.render_frame_stats(entry_scene("cpu")[2], params, settings, config)
+    lsb_gate(img, img_cpu.numpy(), label, "the port's CPU frame")
+    db = golden.psnr(img, oracle)
+    log(f"{label} frame PSNR vs f64 golden oracle: {db:.2f} dB")
+    if db < 40.0:
+        raise RuntimeError(f"{label} frame PSNR {db:.2f} dB < 40 dB")
+    lsb_gate(img, default_img, label, "the default entry frame")
+    np.save(os.path.join(OUT_DIR, "chip_smoke_entry_bruteforce.npy"), img)
+    return img
+
+
+def run_entry_deferred(bf_img):
+    """3g: the entry frame with fused_shade=False: K1 twice (shadow and
+    camera pass) and no other kernel; its visibility buffer equal to the
+    brute-force one on the same setup (tiled == brute force), its frame
+    within 1 LSB of the brute-force frame."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+
+    label = "deferred entry"
+    config = dataclasses.replace(entry_scene("cpu")[0], fused_shade=False)
+    img, _, counts, _, bufs, params, _ = entry_frame(config, label=label, path=DEFERRED_PATH)
+    if counts["raster_tiles"] != 2:
+        raise RuntimeError(f"{label}: K1 launched {counts['raster_tiles']} times, not 2")
+    lsb_gate(img, bf_img, label, "the brute-force entry frame")
+    geom = bufs.geometry
+    tri_valid = torch.arange(geom.capacity, device=bufs.device) < geom.num_tris
+    setup = pipeline.camera_setup(pipeline.world_corners(geom), tri_valid,
+                                  params.camera.proj_view(), config)
+    h, w = config.height, config.width
+    tiled = pipeline.rasterize(setup, h, w, config)[1]
+    brute = pipeline.rasterize(setup, h, w, dataclasses.replace(config, force_bruteforce=True))[1]
+    covered = float((brute >= 0).float().mean())
+    log(f"{label} ibuf: K1's equal to the brute-force raster's: {torch.equal(tiled, brute)} "
+        f"({covered:.2%} of pixels covered)")
+    if not torch.equal(tiled, brute):
+        raise RuntimeError(f"{label}: K1's ibuf differs from the brute-force raster's")
+    np.save(os.path.join(OUT_DIR, "chip_smoke_entry_deferred.npy"), img)
+
+
+def with_shadow_factors(fn):
+    """Call ``fn()`` with ops/shadow.pcf_shadow_proj wrapped; returns (its
+    result, the sun shadow factors of the one frame it rendered, on the
+    host, cropped by the caller)."""
+    from arctic_tpu_torch.ops import shadow
+
+    seen, orig = [], shadow.pcf_shadow_proj
+
+    def wrapped(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        seen.append(out[0] if isinstance(out, tuple) else out)
+        return out
+
+    shadow.pcf_shadow_proj = wrapped
+    try:
+        result = fn()
+    finally:
+        shadow.pcf_shadow_proj = orig
+    (factors,) = seen
+    return result, factors.cpu().numpy()
+
+
+# A pixel where the fused and deferred PCF factors differ by one tap may
+# differ by up to this many LSB, on at most TAP_FLIP_SHARE of the pixels.
+TAP_FLIP_LSB = 3
+TAP_FLIP_SHARE = 1e-4
+
+
+def tap_flip_gate(fused, deferred, label: str) -> None:
+    """The fused and deferred frames, each (img, shadow factors): within 1
+    LSB on < 1% of their values, except at pixels where the two PCF shadow
+    factors differ by one tap of 25, which may differ by up to TAP_FLIP_LSB
+    on at most TAP_FLIP_SHARE of the pixels. The fused frame interpolates
+    the light-space position per corner, the deferred frame projects the
+    interpolated world position, so a window texel at a depth edge can
+    compare the other way; under the spotlight's 120-unit radiance one tap
+    (1/25 of lit) moves a pixel by more than 1 LSB."""
+    import numpy as np
+
+    (img_f, sf_f), (img_d, sf_d) = fused, deferred
+    h, w = img_f.shape[:2]
+    taps = np.abs(sf_f[:h, :w] - sf_d[:h, :w]) * 25.0
+    one_tap = (taps > 0.0) & (taps < 1.0 + 1e-4)
+    d = np.abs(img_f.astype(np.int32) - img_d.astype(np.int32))
+    over = d.max(axis=2) > 1
+    frac = float((d > 0).mean())
+    over_share = float(over.mean())
+    log(f"{label} frame vs the deferred frame: max {d.max()} LSB on {frac:.4%} of values; "
+        f"{int(over.sum())} pixels over 1 LSB ({over_share:.4%}), {int((over & one_tap).sum())} "
+        f"of them where the two PCF factors differ by one tap ({int(one_tap.sum())} such pixels)")
+    if frac >= 0.01 or (over & ~one_tap).any():
+        raise RuntimeError(f"{label} frame differs from the deferred frame beyond 1 LSB / 1% "
+                           f"where their shadow factors agree")
+    if d.max() > TAP_FLIP_LSB or over_share > TAP_FLIP_SHARE:
+        raise RuntimeError(f"{label} frame differs from the deferred frame by more than "
+                           f"{TAP_FLIP_LSB} LSB, or by more than 1 LSB on more than "
+                           f"{TAP_FLIP_SHARE:.4%} of its pixels, where one PCF tap flips")
+
+
+def run_entry_optins():
+    """3h: Cornell with the point light and the spotlight, spotlights=True,
+    fused and deferred, then the same with ibl_specular=True: each pair
+    within 1 LSB on < 1% of its values where their PCF factors agree, at
+    most TAP_FLIP_LSB on at most TAP_FLIP_SHARE of the pixels where one tap
+    flips (tap_flip_gate); the fused spot frame >= 40 dB against the f64 oracle
+    with the cone; the IBL frame > 2 LSB from the frame without it
+    somewhere."""
+    import dataclasses
+
+    import numpy as np
+
+    from arctic_tpu_torch.core.scene import PointLights
+    from arctic_tpu_torch.models import golden
+
+    base, scene, _, params, settings = entry_scene("cpu")
+    params.point_lights = PointLights.from_list([POINT, SPOT], spots=True)
+    frames = {}
+    for ibl in (False, True):
+        name = f"spot{' + IBL' if ibl else ''} entry"
+        for fused in (True, False):
+            config = dataclasses.replace(base, spotlights=True, ibl_specular=ibl,
+                                         fused_shade=fused)
+            path = DEFAULT_PATH if fused else DEFERRED_PATH
+            absent = ("tile_tap_resolve", "transpose_pack_rows") if fused else None
+            out, factors = with_shadow_factors(lambda: entry_frame(
+                config, params, f"{'fused' if fused else 'deferred'} {name}", path, absent))
+            frames[fused, ibl] = out[0], factors
+        tap_flip_gate(frames[True, ibl], frames[False, ibl], f"fused {name}")
+    spot = frames[True, False][0]
+    db = golden.psnr(spot, golden_frame(scene, params, settings, base, lights=[POINT, SPOT]))
+    log(f"fused spot entry frame PSNR vs the f64 oracle with the cone: {db:.2f} dB")
+    if db < 40.0:
+        raise RuntimeError(f"the spot entry frame PSNR {db:.2f} dB < 40 dB")
+    d = np.abs(frames[True, True][0].astype(np.int32) - spot.astype(np.int32))
+    log(f"IBL moves the fused spot entry frame by up to {d.max()} LSB "
+        f"({int((d.max(axis=2) > 0).sum())} pixels)")
+    if d.max() <= 2:
+        raise RuntimeError("ibl_specular=True did not change the entry frame")
+
+
+def run_cli_flags():
+    """The CLI's --bruteforce, and its --ibl with a --spot, on the card at the
+    entry size on the GLB run_cli wrote: each PNG bit-equal to the
+    in-process frame of the config the flags ask for; the brute-force run
+    launches no kernel, the other K1, K3, K4 and K6."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.app import cli
+    from arctic_tpu_torch.core.config import RenderConfig
+    from arctic_tpu_torch.core.scene import (
+        PointLights, default_scene_params, default_settings, make_camera,
+    )
+    from arctic_tpu_torch.io.build import build_buffers
+    from arctic_tpu_torch.io.images import load_ldr
+    from arctic_tpu_torch.io.load import load_scene_file
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    w, h, s = ENTRY["width"], ENTRY["height"], ENTRY["shadow"]
+    folder = os.path.join(OUT_DIR, "cli")
+    glb = os.path.join(folder, "cornell.glb")
+    cam = ",".join(str(v) for v in ENTRY["eye"] + ENTRY["rot"])
+    (pos, col, (axis, inner, outer)) = SPOT
+    spot = ",".join(str(v) for v in (*pos, *col, *axis, inner, outer))
+    bufs = build_buffers(*load_scene_file(glb), device="cuda")
+    for name, flags in (("bruteforce", ["--bruteforce"]), ("ibl_spot", ["--ibl", "--spot", spot])):
+        out = os.path.join(folder, f"{name}.png")
+        kernels.reset_launch_counts()
+        rc = cli.main(["render", glb, "--width", str(w), "--height", str(h), "--shadow-size",
+                       str(s), f"--camera={cam}", "--out", out] + flags)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log(f"cli render {' '.join(flags)} (rc {rc}) launches: {counts}")
+        if rc != 0:
+            raise RuntimeError(f"the CLI returned {rc}")
+        params = default_scene_params(aspect=w / h)
+        params.camera = make_camera(ENTRY["eye"], ENTRY["rot"], w / h)
+        config = RenderConfig(width=w, height=h, shadow_size=s)
+        if name == "bruteforce":
+            check_launches(counts, (), f"cli {name}", absent=tuple(counts))
+            config = dataclasses.replace(config, force_bruteforce=True)
+        else:
+            check_launches(counts, DEFAULT_PATH, f"cli {name}",
+                           absent=("tile_tap_resolve", "transpose_pack_rows"))
+            pl = params.point_lights
+            rows = [(pl.position[i].tolist(), pl.color[i].tolist()) for i in range(pl.count)]
+            params.point_lights = PointLights.from_list(rows + [SPOT], spots=True)
+            config = pipeline.autotune_pair_caps(
+                bufs, params, dataclasses.replace(config, ibl_specular=True))
+            config = dataclasses.replace(config, spotlights=True,
+                                         static_point_lights=params.point_lights.count)
+        img, stats = pipeline.render_frame_stats(bufs, params, default_settings(), config)
+        pipeline.check_stats(stats)
+        img = img.cpu().numpy()
+        png = load_ldr(out)[..., :3]
+        if not np.array_equal(png, img):
+            d = np.abs(png.astype(np.int32) - img.astype(np.int32))
+            raise RuntimeError(f"the CLI's {name} frame differs from the in-process frame: "
+                               f"max {d.max()} LSB on {int((d.max(axis=2) > 0).sum())} pixels")
+        log(f"cli {name} frame: the PNG is bit-equal to the in-process frame")
+
+
 def real_params(i: int):
     import torch
 
@@ -394,15 +698,17 @@ def real_config():
     )
 
 
-def tune_caps(bufs, label: str):
-    """real_config() with the pair caps autotune_pair_caps gives over
-    bench.py's 20 viewpoints (bench.py:448-453); prints them beside the
-    formula's."""
+def tune_caps(bufs, label: str, **fields):
+    """real_config() (with ``fields`` replaced) with the pair caps
+    autotune_pair_caps gives over bench.py's 20 viewpoints
+    (bench.py:448-453); prints them beside the formula's."""
+    import dataclasses
+
     import torch
 
     from arctic_tpu_torch.models import pipeline
 
-    formula = real_config()
+    formula = dataclasses.replace(real_config(), **fields)
     path = [real_params(i)[0] for i in range(BENCH_FRAMES)]
     t = time.perf_counter()
     tuned = pipeline.autotune_pair_caps(bufs, path, formula, margin=PAIR_MARGIN)
@@ -682,6 +988,116 @@ def run_full_stack(device, bufs, config, default_imgs, profile: bool = False):
     log(f"full-stack real-size frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
         f"(all {['%.3f' % t for t in times]}), {_mem(mem)}, stats {summary['stats']}")
     return summary, calls, counts
+
+
+def run_real_deferred(device, bufs, default_imgs, profile: bool = False):
+    """4h: the deferred frame at real size: the default config with
+    fused_shade=False and pair caps tuned for it (the shadow pass uncull'd),
+    the fly-through (K1 twice a frame, no other kernel), each frame not
+    black and within 1 LSB of the default path's frame at the same
+    viewpoint on >= DEFERRED_NEAR_SHARE of its pixels, frame 19 gated
+    against bench_golden.png by the default path's rule. Returns (summary,
+    config)."""
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    label = "deferred real-size"
+    config = tune_caps(bufs, label, fused_shade=False)
+    render = pipeline.make_renderer_stats(config, device)
+    img, stats = render(bufs, *real_params(0))  # warm-up
+    torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+    frames = [real_params(i) for i in range(FLY_FRAMES)]
+    absent = tuple(k for k in kernels.launch_counts() if k not in DEFERRED_PATH)
+    times, all_stats, imgs, counts, mem = fly_through(
+        render, bufs, frames, DEFERRED_PATH, label, absent=absent)
+    if counts["raster_tiles"] != 2 * len(frames):
+        raise RuntimeError(f"K1 launched {counts['raster_tiles']} times in {len(frames)} frames")
+    if profile:
+        profile_frames(render, bufs, frames[:2], "deferred")
+    shares = []
+    for im, ref in zip(imgs, default_imgs):
+        if im.shape != (REAL["height"], REAL["width"], 3) or im.mean() < 5.0:
+            raise RuntimeError(f"{label} frame is wrong: shape {im.shape}, mean {im.mean():.2f}")
+        d = np.abs(im.astype(np.int32) - ref.astype(np.int32)).max(axis=2)
+        shares.append((float((d <= 1).mean()), int(d.max())))
+    log(f"{label} vs default frames: (share of pixels within 1 LSB, max LSB) {shares}")
+    if min(sh for sh, _ in shares) < DEFERRED_NEAR_SHARE:
+        raise RuntimeError(f"a {label} frame is within 1 LSB of the default frame on < "
+                           f"{DEFERRED_NEAR_SHARE:.0%} of its pixels")
+    np.save(os.path.join(OUT_DIR, "chip_smoke_real_deferred.npy"), imgs[-1])
+    summary = dict(ms_per_frame_median=statistics.median(times), ms_per_frame=times,
+                   max_memory_allocated=mem[0], shares=shares,
+                   stats={k: int(v) for k, v in all_stats[-1].items()})
+    log(f"{label} frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
+        f"(all {['%.3f' % t for t in times]}), {_mem(mem)}, stats {summary['stats']}")
+    last = last_bench_frame(render, bufs)
+    g = golden_compare(last, "bench_golden.png")
+    log(f"{label} frame 19 vs bench_golden.png: {g['db']:.2f} dB whole frame; {g['near']:.4%} "
+        f"of pixels within {GOLDEN_NEAR_LSB} LSB, {g['near_db']:.2f} dB over them")
+    if g["near"] < GOLDEN_NEAR_SHARE or g["near_db"] < GOLDEN_MIN_DB:
+        raise RuntimeError(f"deferred frame 19 fails its golden gate: {g}")
+    return summary, config
+
+
+def optin_params(i: int):
+    """Fly-through step i with the bench rig plus REAL_SPOT as cone rows."""
+    from arctic_tpu_torch.core.scene import PointLights
+
+    params, settings = real_params(i)
+    params.point_lights = PointLights.from_list(REAL_LIGHTS + [REAL_SPOT], spots=True)
+    return params, settings
+
+
+def run_real_optins(device, bufs, config, deferred_config, profile: bool = False):
+    """4i: the opt-ins at real size on the default (fused) path:
+    ibl_specular and spotlights, the bench rig plus REAL_SPOT, the
+    fly-through (K1, K3, K4 and K6 launched); frame 0 within 1 LSB of the
+    deferred frame with the same options on >= DEFERRED_NEAR_SHARE of its
+    pixels. Returns the summary."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+
+    label = "opt-ins real-size"
+    opts = dict(ibl_specular=True, spotlights=True, static_point_lights=len(REAL_LIGHTS) + 1)
+    log(f"{label} rig: {REAL_LIGHTS + [REAL_SPOT]} (position, color[, (axis, inner, outer "
+        f"degrees)]), {opts}")
+    render = pipeline.make_renderer_stats(dataclasses.replace(config, **opts), device)
+    img, stats = render(bufs, *optin_params(0))  # warm-up
+    torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+    frames = [optin_params(i) for i in range(FLY_FRAMES)]
+    times, all_stats, imgs, counts, mem = fly_through(
+        render, bufs, frames, DEFAULT_PATH, label,
+        absent=("tile_tap_resolve", "transpose_pack_rows"))
+    if profile:
+        profile_frames(render, bufs, frames[:2], "optins")
+    deferred = pipeline.make_renderer_stats(dataclasses.replace(deferred_config, **opts), device)
+    ref, stats = deferred(bufs, *frames[0])
+    pipeline.check_stats(stats)
+    d = np.abs(imgs[0].astype(np.int32) - ref.cpu().numpy().astype(np.int32)).max(axis=2)
+    share = float((d <= 1).mean())
+    log(f"{label} frame 0 vs the deferred frame with the same options: {share:.4%} of pixels "
+        f"within 1 LSB, max {d.max()} LSB")
+    if share < DEFERRED_NEAR_SHARE:
+        raise RuntimeError(f"{label} frame 0 is within 1 LSB of the deferred frame on < "
+                           f"{DEFERRED_NEAR_SHARE:.0%} of its pixels")
+    if any(im.mean() < 5.0 for im in imgs):
+        raise RuntimeError(f"a {label} frame is black")
+    np.save(os.path.join(OUT_DIR, "chip_smoke_real_optins.npy"), imgs[-1])
+    summary = dict(ms_per_frame_median=statistics.median(times), ms_per_frame=times,
+                   max_memory_allocated=mem[0], share=share,
+                   stats={k: int(v) for k, v in all_stats[-1].items()})
+    log(f"{label} frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
+        f"(all {['%.3f' % t for t in times]}), {_mem(mem)}, stats {summary['stats']}")
+    return summary
 
 
 def run_f32_table_pcf(device, bufs, config):
@@ -1334,16 +1750,26 @@ def main() -> int:
     csummary = run_cached(dev, bufs, qconfig, uncached, profile)
     tsummary, treal_calls, tcounts = run_textured(dev, profile)
     fsummary, freal_calls, fcounts = run_full_stack(dev, bufs, base, real_imgs, profile)
-    del real_imgs
     lut_calls, lcounts = run_f32_table_pcf(dev, bufs, base)
     # After the real-size paths, so that each of them sees the caching
     # allocator's history of the parent's script (bytes and peaks compare).
     run_cli()
+    # The deferred and brute-force frames and the opt-ins, after every
+    # earlier phase for the same reason.
+    bf_img = run_entry_bruteforce(oracle, entry_img)
+    run_entry_deferred(bf_img)
+    run_entry_optins()
+    run_cli_flags()
+    dsummary, dconfig = run_real_deferred(dev, bufs, real_imgs, profile)
+    del real_imgs
+    osummary = run_real_optins(dev, bufs, base, dconfig, profile)
     log(f"real-size ms/frame medians (one call, one card): default "
         f"{summary['ms_per_frame_median']:.3f}, full-stack {fsummary['ms_per_frame_median']:.3f}, "
         f"quant {qsummary['ms_per_frame_median']:.3f}, "
         f"cached sun {csummary['ms_per_frame_median']:.3f}, "
-        f"textured {tsummary['ms_per_frame_median']:.3f}")
+        f"textured {tsummary['ms_per_frame_median']:.3f}, "
+        f"deferred {dsummary['ms_per_frame_median']:.3f}, "
+        f"opt-ins {osummary['ms_per_frame_median']:.3f}")
     own = ("window_lut_q", "pcf_eval")
     entry_cmps = [
         compare_kernels(entry_calls, "entry", DEFAULT_PATH),

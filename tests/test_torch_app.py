@@ -25,10 +25,15 @@ from arctic_tpu.utils.profiling import FrameStats as JFrameStats
 from arctic_tpu_torch.app.camera import FlyCamera
 from arctic_tpu_torch.app.cli import main
 from arctic_tpu_torch.core.config import UNPORTED_FIELDS, RenderConfig, config_from_dict
-from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
+from arctic_tpu_torch.core.scene import (
+    PointLights,
+    default_scene_params,
+    default_settings,
+    make_camera,
+)
 from arctic_tpu_torch.io import build, gltf_export, images, load, procedural
 from arctic_tpu_torch.models import golden, pipeline
-from arctic_tpu_torch.utils import profiling, serialize
+from arctic_tpu_torch.utils import kernels, profiling, serialize
 from arctic_tpu_torch.utils.errors import RenderError, render_guard
 
 W, H, SHADOW = 96, 64, 96
@@ -54,18 +59,22 @@ def _render(argv, out):
     return None if "--frames" in argv else images.load_ldr(str(out))[..., :3]
 
 
-def _in_process(scene, config=None, tm=0):
+def _in_process(scene, config=None, tm=0, lights=None):
     """The port's frame of ``scene`` as the CLI renders it: tuned pair
-    caps, the light count static."""
+    caps and the light count static (not under force_bruteforce);
+    ``lights``: a PointLights bank in place of the default one."""
     meshes, objects, materials, env = scene
     bufs = build.build_buffers(meshes, objects, materials, env, device="cpu")
     params = default_scene_params(aspect=W / H)
     params.camera = make_camera(EYE, ROT, W / H)
+    if lights is not None:
+        params.point_lights = lights
     settings = default_settings()
     settings.tm_method = tm
     config = config or RenderConfig(width=W, height=H, shadow_size=SHADOW)
-    config = pipeline.autotune_pair_caps(bufs, params, config)
-    config = dataclasses.replace(config, static_point_lights=params.point_lights.count)
+    if not config.force_bruteforce:
+        config = pipeline.autotune_pair_caps(bufs, params, config)
+        config = dataclasses.replace(config, static_point_lights=params.point_lights.count)
     img, stats = pipeline.make_renderer_stats(config, "cpu")(bufs, params, settings)
     pipeline.check_stats(stats)
     return img.numpy(), params, settings
@@ -129,14 +138,48 @@ def test_cli_config_shadow_tile_and_ignored_fields(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--bruteforce"], ["--ibl"], ["--spot", "0,1,0,1,1,1,0,-1,0,20,30"], ["--raytrace"],
-    ["--devices", "2"], ["--debug-checks"],
+    ["--raytrace"], ["--devices", "2"], ["--debug-checks"],
 ], ids=lambda a: a[0])
 def test_cli_unported_flags_raise_before_loading(tmp_path, argv):
     """Each flag of a path the port lacks raises RenderError naming its
     ROADMAP item before the scene is read (the path does not exist)."""
     with pytest.raises(RenderError, match="ROADMAP"):
         main(["render", str(tmp_path / "missing.glb"), "--device", "cpu"] + argv)
+
+
+# A spotlight over the Cornell boxes aimed down (tests/test_spotlights.py:29).
+SPOT = ((0.0, 6.0, -5.0), (120.0, 120.0, 120.0), ((0.0, -1.0, 0.0), 20.0, 35.0))
+SPOT_ARG = "0,6,-5,120,120,120,0,-1,0,20,35"
+
+
+@pytest.mark.parametrize("flag", ["--bruteforce", "--ibl", "--spot"])
+def test_cli_ported_flags_render(tmp_path, flag):
+    """--bruteforce, --ibl and --spot render on the CPU: the PNG equals the
+    in-process frame of the config the flag asks for (brute force with no
+    pair-cap tuning; the spotlight appended to the default light as a cone
+    row), the brute-force run calls no kernel wrapper, and the opt-ins
+    change the default frame."""
+    scene = procedural.cornell_like_scene()
+    argv = ["--procedural", "cornell", flag] + ([SPOT_ARG] if flag == "--spot" else [])
+    with kernels.record_calls() as calls:
+        img = _render(argv, tmp_path / "f.png")
+    base = RenderConfig(width=W, height=H, shadow_size=SHADOW)
+    lights = None
+    if flag == "--bruteforce":
+        config = dataclasses.replace(base, force_bruteforce=True)
+        assert calls == {}
+    elif flag == "--ibl":
+        config = dataclasses.replace(base, ibl_specular=True)
+    else:
+        config = dataclasses.replace(base, spotlights=True)
+        lights = PointLights.from_list([((0.0, 1.0, 0.0), (10.0, 0.0, 0.0)), SPOT], spots=True)
+    want, _, _ = _in_process(scene, config, lights=lights)
+    assert img.shape == (H, W, 3) and img.std() > 10
+    np.testing.assert_array_equal(img, want)
+    if flag != "--bruteforce":
+        assert set(calls) >= {"raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve"}
+        default, _, _ = _in_process(scene)
+        assert np.abs(img.astype(int) - default.astype(int)).max() > 2
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED_FIELDS))
@@ -146,6 +189,23 @@ def test_config_unported_fields_raise(field):
     other = (32,) if default is None else default // 2 if type(default) is int else not default
     with pytest.raises(RenderError, match=field):
         config_from_dict({field: other})
+
+
+@pytest.mark.parametrize(
+    "field", ["force_bruteforce", "fused_shade", "ibl_specular", "spotlights", "debug_overflow"]
+)
+def test_config_ported_fields(field):
+    """Each field ported with the deferred frame and the opt-ins reaches
+    RenderConfig, off its JAX default, through config_from_dict and through
+    convert.render_config."""
+    from arctic_tpu.core.config import RenderConfig as JRenderConfig
+    from arctic_tpu_torch.utils import convert
+
+    default = getattr(JRenderConfig(), field)
+    assert getattr(RenderConfig(), field) == default
+    assert getattr(config_from_dict({field: not default}), field) is (not default)
+    tc = convert.render_config(JRenderConfig(**{field: not default}))
+    assert tc == dataclasses.replace(RenderConfig(), **{field: not default})
 
 
 def test_config_tiles_and_unknown_fields():
@@ -235,7 +295,7 @@ def test_state_files_load_in_either_package(tmp_path):
     """A state saved by the port loads in the JAX package's load_state to
     equal params and settings, and the other way round; the JSON is the
     same."""
-    from arctic_tpu_torch.core.scene import PointLights, Settings
+    from arctic_tpu_torch.core.scene import Settings
 
     params = default_scene_params(aspect=W / H)
     params.camera = make_camera([1.5, 2.25, -3.0], [-12.5, 33.3], W / H, fov_y=50.0)
@@ -251,10 +311,6 @@ def test_state_files_load_in_either_package(tmp_path):
     assert json.loads(theirs.read_text()) == json.loads(ours.read_text())
     tp, ts = serialize.load_state(str(theirs))
     _jax_params_equal(jp, js, tp, ts)
-    d = json.loads(ours.read_text())
-    d["point_lights"][0].update(spot_dir=[0, -1, 0], spot_cos=[0.5, 2.0])
-    with pytest.raises(RenderError, match="spotlights"):
-        serialize.params_from_dict(d)
 
 
 def test_fly_camera_equals_jax():

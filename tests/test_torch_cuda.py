@@ -4,7 +4,8 @@ utils/synthetic.py), and the entry frame, on the default path, on the
 quantised PCF path (pcf_row_cap), on the textured path (the tile atlas,
 forced with tile_threshold_texels=0) and on the full-stack shade-row route
 (a Geometry without slot_static_rows: K10 in place of K3), against the CPU
-frame.
+frame; and the brute-force and deferred entry frames, which launch no
+kernel and K1 alone.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on a machine with the card and no JAX:
@@ -136,6 +137,25 @@ def test_entry_frame_matches_cpu(entry_run, quant_run, tex_run, full_run, path):
 def test_full_stack_frame_matches_default_frame(entry_run, full_run):
     d = (full_run["img"].to(torch.int32) - entry_run["img"].to(torch.int32)).abs()
     assert int(d.max()) <= 1
+
+
+@pytest.mark.parametrize("field,value", [("force_bruteforce", True), ("fused_shade", False)])
+def test_bruteforce_and_deferred_frames_match_cpu(cuda, field, value):
+    """The brute-force frame launches no kernel, the deferred frame K1 alone
+    (shadow and camera pass); each is within 1 LSB of its CPU frame on < 1%
+    of the values, with equal stats."""
+    config, bufs, params, settings = _entry(cuda)
+    config = dataclasses.replace(config, **{field: value})
+    kernels.reset_launch_counts()
+    img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts == {k: 2 if k == "raster_tiles" and field == "fused_shade" else 0
+                      for k in counts}
+    cpu_img, cpu_stats = pipeline.render_frame_stats(*_entry("cpu")[1:], config)
+    d = (img.cpu().to(torch.int32) - cpu_img.to(torch.int32)).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+    assert {k: int(v) for k, v in stats.items()} == {k: int(v) for k, v in cpu_stats.items()}
 
 
 @pytest.mark.parametrize("name", QUANT_PATH + ("tile_tap_resolve", "transpose_pack_rows"))
