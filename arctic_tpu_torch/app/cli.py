@@ -14,9 +14,11 @@ Examples:
 --bruteforce renders with the brute-force raster oracle and the deferred
 shade (small frames only; no pair-cap tuning, --cache-sun ignored), --ibl
 adds the opt-in IBL specular term, and each --spot appends a spotlight to
-the loaded or default lights. The flags of paths the port does not have
-(--raytrace, --devices, --debug-checks) raise RenderError before anything
-is loaded or built.
+the loaded or default lights. --raytrace renders the ray-traced mode (a
+BVH built on the host, K14 on the card; no pair-cap tuning, no stats, the
+tile atlas refused). The flags of paths the port does not have
+(--devices, --debug-checks) raise RenderError before anything is loaded or
+built.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ TM_NAMES = {"reinhard": 0, "exposure": 1, "aces": 2}
 # Flags of the JAX package's CLI whose paths are not ported, and where
 # each path stands; any of them set (true, non-empty, non-zero) raises.
 UNPORTED_FLAGS = {
-    "raytrace": "ROADMAP Queue 1 item 8, the ray-traced mode",
     "devices": "ROADMAP Queue 1 item 9, sharding",
     "debug_checks": "ROADMAP Queue 1 item 10, enable_debug_checks",
 }
@@ -83,9 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--spot", action="append", default=[], metavar="X,Y,Z,R,G,B,AX,AY,AZ,IN,OUT",
                    help="add a spotlight: position, color, axis, inner / outer cone "
                    "degrees (opt-in). Repeatable.")
+    r.add_argument("--raytrace", action="store_true",
+                   help="ray-traced mode (BVH traversal instead of the rasterizer)")
     # Not ported: each raises RenderError (UNPORTED_FLAGS).
     r.add_argument("--devices", type=int, default=0, help="(not ported)")
-    r.add_argument("--raytrace", action="store_true", help="(not ported)")
     r.add_argument("--debug-checks", action="store_true", help="(not ported)")
     return p
 
@@ -175,14 +177,24 @@ def cmd_render(args) -> int:
             settings, exposure=torch.tensor(args.exposure, dtype=torch.float32)
         )
 
-    if not config.force_bruteforce:
+    if not (args.raytrace or config.force_bruteforce):
         # Size the pair buffers to the scene (binning's cost scales with the
         # capacity, not the pairs), and shade the known light count.
         config = pipeline.autotune_pair_caps(buffers, params, config)
         config = dataclasses.replace(config, static_point_lights=params.point_lights.count)
         log.info("pair caps: cam=%d shadow=%d", config.pair_cap_cam, config.pair_cap_shadow)
 
-    if args.cache_sun and not config.force_bruteforce:
+    render_stats = None
+    if args.raytrace:
+        from arctic_tpu_torch.models import raytrace
+
+        rt_render = raytrace.make_rt_renderer(config, raytrace.build_scene_bvh(buffers), device)
+
+        def render(b, p, s):
+            return rt_render(b, p, s), None
+
+        log.info("ray-traced mode: BVH built on the host")
+    elif args.cache_sun and not config.force_bruteforce:
         sun_cache, cache_stats = pipeline.make_sun_cache_builder(config, device)(buffers, params)
         pipeline.check_stats({**cache_stats, "cam_pairs": 0, "cam_pair_cap": 1})
         cached = pipeline.make_cached_renderer_stats(config, device)
@@ -193,23 +205,27 @@ def cmd_render(args) -> int:
         log.info("sun cache built (shadow map reused per frame)")
     else:
         render_stats = pipeline.make_renderer_stats(config, device)
+    if render_stats is not None:
+        render = render_stats
 
     scene_desc = args.scene or f"procedural:{args.procedural}"
     guard_desc = (f"scene={scene_desc} {config.width}x{config.height} "
                   f"shadow={config.shadow_size} tris={buffers.geometry.num_tris} device={device}")
 
-    # The first frame's stats: did a pair or penumbra row buffer overflow
-    # (dropped fragments)?
-    with render_guard(guard_desc):
-        _, rstats = render_stats(buffers, params, settings)
-        rstats = {k: int(v) for k, v in rstats.items()}
-    for name, count, cap in (("cam pass", "cam_pairs", "cam_pair_cap"),
-                             ("shadow pass", "shadow_pairs", "shadow_pair_cap"),
-                             ("PCF", "pcf_rows", "pcf_row_cap")):
-        if rstats[count] > rstats[cap]:
-            log.warning("%s overflowed its buffer (%d > %d): the frame is wrong — raise "
-                        "pairs_per_tri / pair_reserve / pcf_row_cap via --config",
-                        name, rstats[count], rstats[cap])
+    # The first frame's stats: did a pair, penumbra row or fallback row
+    # buffer overflow (dropped fragments)? The ray-traced mode has none.
+    if render_stats is not None:
+        with render_guard(guard_desc):
+            _, rstats = render_stats(buffers, params, settings)
+            rstats = {k: int(v) for k, v in rstats.items()}
+        for name, count, cap in (("cam pass", "cam_pairs", "cam_pair_cap"),
+                                 ("shadow pass", "shadow_pairs", "shadow_pair_cap"),
+                                 ("PCF", "pcf_rows", "pcf_row_cap"),
+                                 ("grouped tile route", "tex_fb_rows", "tex_fb_cap")):
+            if rstats[count] > rstats[cap]:
+                log.warning("%s overflowed its buffer (%d > %d): the frame is wrong — raise "
+                            "pairs_per_tri / pair_reserve / pcf_row_cap / tex_group_caps via "
+                            "--config", name, rstats[count], rstats[cap])
 
     stats = FrameStats()
     img = None
@@ -222,7 +238,7 @@ def cmd_render(args) -> int:
         # frame time.
         t0 = time.perf_counter()
         with render_guard(guard_desc):
-            img, _ = render_stats(buffers, p, settings)
+            img, _ = render(buffers, p, settings)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         stats.add(time.perf_counter() - t0)

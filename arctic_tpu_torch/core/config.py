@@ -85,6 +85,19 @@ class RenderConfig:
     # buffer overflowed (a host read of the counts every frame).
     debug_overflow: bool = False
 
+    # The grouped tile route (tile atlases of several material groups):
+    # one row capacity per group plus the fallback's, each a multiple of 32
+    # (pipeline.autotune_tex_group_caps sizes them). 128-pixel rows gather
+    # from their group's table; rows of more than two groups, or past a
+    # group's cap, take the full-table fallback. None = the plain gather.
+    # Overflow is loud: stats carry tex_fb_rows vs tex_fb_cap.
+    tex_group_caps: tuple | None = None
+
+    # Ray-traced mode (models/raytrace.py): an any-hit ray toward each point
+    # light, bounded at its distance, shadows it (off: the lights are
+    # shadowed by the sun's ray alone, as in the raster frame).
+    rt_light_shadows: bool = False
+
     @property
     def tiles_x(self) -> int:
         return -(-self.width // self.tile_w)
@@ -114,8 +127,6 @@ IGNORED_FIELDS = frozenset({"raster_chunk", "select_chunk", "tiles_per_step", "l
 # Fields of the JAX package's RenderConfig whose other paths are not
 # ported: (the JAX default, which the port's frame is, and where it stands).
 UNPORTED_FIELDS = {
-    "tex_group_caps": (None, "ROADMAP Queue 1 item 6, the grouped tile route"),
-    "rt_light_shadows": (False, "ROADMAP Queue 1 item 8, the ray-traced mode"),
     "hdr_half_round": (True, "the f16 HDR round is always on in the port"),
     "sun_frustum_cull": (True, "the sun-frustum cull is always on in the port"),
     "shadow_tile": (SHADOW_TILE, "the port's shadow tile is 64 x 64, the only one the "
@@ -133,7 +144,9 @@ def config_from_dict(fields: dict) -> RenderConfig:
     kept = {f.name for f in dataclasses.fields(RenderConfig)}
     out = {}
     for name, value in fields.items():
-        if name in kept:
+        if name == "tex_group_caps" and value is not None:
+            out[name] = tuple(int(c) for c in value)  # a JSON list, or the JAX tuple
+        elif name in kept:
             out[name] = value
         elif name in UNPORTED_FIELDS:
             default, where = UNPORTED_FIELDS[name]

@@ -1,5 +1,5 @@
 """Scene / settings data model as dataclasses of tensors — torch port of
-arctic_tpu/core/scene.py (only the fields the ported frame paths read).
+arctic_tpu/core/scene.py (the fields the ported frame paths read).
 
 Per-frame state (camera, sun, point lights, settings) holds small float32
 tensors that stay on the host: the renderer derives the 4x4 matrices and the
@@ -154,6 +154,9 @@ class Geometry:
     # the full-stack shade-row build (K10), which reads the two tri-major
     # planes above every frame instead.
     slot_static_rows: torch.Tensor | None  # (56, NT) f32
+    # Material id of each triangle: the grouped tile route's row
+    # measurements read it (pipeline.measure_tex_row_masks).
+    tri_material: torch.Tensor | None = None  # (T,) i32
 
     def __post_init__(self):
         # build_buffers makes the tri-major planes views of the static rows:
@@ -169,13 +172,19 @@ class Geometry:
 
 @dataclass
 class TextureAtlas:
-    """The material textures, on one of two routes (see
+    """The material textures, on one of four routes (see
     arctic_tpu.core.scene.TextureAtlas):
 
-    - the combined-slot quad atlas of the merged texture+environment tap
-      (K6): the ``combined_*`` fields and ``quad_width``; ``tiles`` is None;
+    - the merged texture+environment tap (K6): the combined-slot quad rows
+      in bf16 followed by the environment's rows, ``combined_env_rows``;
+    - the unmerged combined tap (an ``atlas_dtype`` other than bf16): the
+      combined-slot quads ``combined_quads`` in that type, sampled apart
+      from the environment (Environment.rows);
+    - the per-slot taps, where a material's maps do not share one size:
+      the plain atlas's quads ``quads`` (one tap per non-constant slot);
     - the u16 tile atlas of reference-scale texture sets (K9): ``tiles``,
-      ``tiles_ntex`` and ``tile_groups``; the ``combined_*`` fields are None.
+      ``tiles_ntex``, ``tile_groups`` and the grouping's fields.
+    Fields of the other routes are None.
     """
 
     combined_slots: tuple | None = None  # texture slots interleaved per quad, e.g. (0, 1)
@@ -184,6 +193,15 @@ class TextureAtlas:
     # [packed material quad rows; environment quad rows] — the one table the
     # merged tap gathers from.
     combined_env_rows: torch.Tensor | None = None  # (ntex + n_env, 128) bf16
+    combined_quads: torch.Tensor | None = None  # (4*BH*BW, C4) in atlas_dtype (unmerged)
+    # The plain per-slot atlas: four parity-shifted 2x2-quad copies of the
+    # (AH, AW) atlas of every (material, slot) image, 16 channels a quad.
+    quads: torch.Tensor | None = None  # (4*BH*BW, 16) in atlas_dtype
+    data_shape: tuple | None = None  # (AH, AW) of the per-slot atlas
+    # Every material's normal (metal-roughness) map is one constant: its
+    # tap is elided and the constant rides the material row.
+    nm_constant: bool = False
+    mr_constant: bool = False
     # [g0 tiles | env | g1 tiles | env | ...]: 4x8-texel u16 tiles (lane
     # c2*32 + y*8 + x holds channels 2*c2 | 2*c2+1 << 16) of each material
     # group, each group followed by its own copy of the environment's quad
@@ -191,21 +209,39 @@ class TextureAtlas:
     tiles: torch.Tensor | None = None  # (N, 128) i32
     tiles_ntex: int | None = None  # first env row of group 0 (any copy serves)
     tile_groups: tuple | None = None  # per group (mstart, env_base, end) rows
+    tile_group_of: tuple | None = None  # material id -> group
+    tile_mat_rows: tuple | None = None  # tile rows per material
+    tile_group_budget: int | None = None  # bytes of one group's slice the build packed to
 
     @property
     def combined_block_grid(self):
         ah, aw = self.combined_shape
         return ah // 2 + 1, aw // 2 + 1
 
+    @property
+    def block_grid(self):
+        ah, aw = self.data_shape
+        return ah // 2 + 1, aw // 2 + 1
+
+    @property
+    def texel_dtype(self) -> torch.dtype:
+        """The type the material texels are stored in on the quad routes."""
+        for t in (self.combined_env_rows, self.combined_quads, self.quads):
+            if t is not None:
+                return t.dtype
+        raise ValueError("the tile atlas stores u16 texels")
+
 
 @dataclass
 class Environment:
-    """Equirect environment: its quad table rows sit at the tail of
-    TextureAtlas.combined_env_rows, or after each group of TextureAtlas.tiles."""
+    """Equirect environment: its bf16 quad rows sit at the tail of
+    TextureAtlas.combined_env_rows, after each group of TextureAtlas.tiles
+    (as f32 bits), or, on the unmerged and per-slot routes, in ``rows``."""
 
     region: tuple  # (y, x, h, w) of the single padded region
     data_shape: tuple  # (EH, EW) of the padded environment atlas
     num_rows: int  # quad rows of one copy of the environment
+    rows: torch.Tensor | None = None  # (num_rows, 128) bf16
 
     @property
     def block_grid(self):

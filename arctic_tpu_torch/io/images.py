@@ -230,7 +230,21 @@ def _float_to_rgbe(rgb: np.ndarray) -> np.ndarray:
 
 
 def load_hdr(path: str) -> np.ndarray:
-    """Radiance .hdr (RGBE, RLE or flat) -> (H, W, 3) f32 linear."""
+    """Radiance .hdr (RGBE, RLE or flat) -> (H, W, 3) f32 linear, through
+    the optional native library where it is built (io/native.py), else
+    load_hdr_np."""
+    from arctic_tpu_torch.io import native
+
+    if native.available():
+        try:
+            return native.load_hdr(path)
+        except IOError:
+            pass  # the numpy decoder names what is wrong with the file
+    return load_hdr_np(path)
+
+
+def load_hdr_np(path: str) -> np.ndarray:
+    """The numpy Radiance .hdr decoder."""
     with open(path, "rb") as f:
         data = f.read()
     # Header: lines until blank, then resolution line.

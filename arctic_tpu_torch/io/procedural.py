@@ -418,3 +418,16 @@ def sponza_like_scene(columns=14, rng_seed=7, texture_size=None, n_materials=24)
             new_objects.append((trs, variants[key]))
         meshes, objects = new_meshes, new_objects
     return meshes, objects, materials, env
+
+
+def per_slot_materials(materials):
+    """The materials with each normal map replaced by a bumpy normal map of
+    half its diffuse map's size (at least 2 texels): a material whose
+    diffuse map is not one constant then has maps of two sizes, so the
+    scene takes the per-slot atlas (io/build.py) instead of a combined one."""
+    return [
+        MaterialImages(m.diffuse, bumpy_normal_texture(max(2, m.diffuse.shape[0] // 2), 2, 0.3),
+                       m.metal_roughness)
+        for m in materials
+    ]
+

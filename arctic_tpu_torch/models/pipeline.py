@@ -1,5 +1,6 @@
 """The frame — torch port of arctic_tpu/models/pipeline.py
-(render_frame_stats, build_sun_cache, autotune_pair_caps; core/config.py).
+(render_frame_stats, build_sun_cache, autotune_pair_caps, the grouped tile
+route's measurements and autotune; core/config.py).
 
 The fused frame (the default):
 
@@ -7,8 +8,10 @@ shadow pass (sun-cull rect, binning, K1 depth-only raster) -> shade-row
 table (K3; for a Geometry without slot_static_rows the full stack in plain
 torch and K10's transpose) -> camera binning + K1 raster -> G-buffer
 resolve (K4) -> PCF
-sun shadow -> texture + sky tap (K6 on the merged quad table, or K9 on the
-u16 tile atlas of reference-scale texture sets) -> Cook-Torrance PBR with
+sun shadow -> texture + sky tap (K6 on the merged quad table; K9 on the
+u16 tile atlas of reference-scale texture sets, per material group with
+``tex_group_caps``; plain torch taps of the unmerged combined quads or the
+per-slot atlas, the sky apart) -> Cook-Torrance PBR with
 point lights and ambient -> skybox composite -> f16 HDR round, tonemap,
 gamma, u8.
 
@@ -22,8 +25,9 @@ while the sun and the geometry stay put.
 
 The deferred frame (``fused_shade=False``): the whole shadow map and the
 camera pass through binning + K1, a per-slot shade table (build_shade_table)
-gathered per pixel by slot id, the material tap from the same combined
-quad rows K6 reads, the exact f32 runs PCF at the pixel's light-space
+gathered per pixel by slot id, the material tap (material_taps: the
+combined quad rows K6 reads, the unmerged combined quads or the per-slot
+atlas), the exact f32 runs PCF at the pixel's light-space
 position, the same lights and composite; all of it but K1 in plain torch.
 The brute-force frame (``force_bruteforce``) is the deferred frame over the
 raster oracle (ops/raster.rasterize_bruteforce) in both passes: no kernel.
@@ -45,6 +49,7 @@ import dataclasses
 import functools
 import logging
 
+import numpy as np
 import torch
 
 from arctic_tpu_torch.core.config import SHADOW_TILE, RenderConfig
@@ -61,9 +66,12 @@ from arctic_tpu_torch.ops.pbr import dot_cf, fresnel_schlick, outgoing_radiance_
 from arctic_tpu_torch.ops.sampling import (
     quad_index,
     sample_atlas_multi,
+    sample_quads_flat,
     tap_resolve,
     tile_index,
+    tile_row_groups,
     tile_tap_resolve,
+    tile_tap_resolve_grouped,
 )
 from arctic_tpu_torch.utils.errors import RenderError
 from arctic_tpu_torch.utils.profiling import named_scope
@@ -92,6 +100,14 @@ def world_corners(geom: Geometry):
             )
         )
     return tuple(out)
+
+
+def world_triangles(geom: Geometry) -> torch.Tensor:
+    """(num_tris, 3, 3) world-space corners of the valid triangles, from
+    world_corners (the ray-traced mode's BVH input)."""
+    wc = world_corners(geom)
+    n = geom.num_tris
+    return torch.stack([torch.stack([x[:n] for x in corner], dim=1) for corner in wc], dim=1)
 
 
 def corners_clip(wc, proj_view: torch.Tensor):
@@ -265,18 +281,12 @@ def pcf_shadow(
     if config.pcf_row_cap is None:
         return shadow.pcf_shadow_proj(shadow_map, x, y, z, with_rows=True)
     hp, wp = covered.shape
-    th, tw = config.tile_h, config.tile_w
-    ty, tx = hp // th, wp // tw
-
-    def to_rows(p):
-        return p.reshape(ty, th, tx, tw).permute(0, 2, 1, 3).reshape(-1, shadow.ROW)
-
     rows, pcf_rows = shadow.pcf_shadow_proj(
-        shadow_map, to_rows(x), to_rows(y), to_rows(z), care=to_rows(covered),
+        shadow_map, *(tile_rows(config, p) for p in (x, y, z)), care=tile_rows(config, covered),
         row_cap=config.pcf_row_cap, with_rows=True, lut=lut, pyramid=pyramid,
         lut_y_range=lut_y_range,
     )
-    return rows.reshape(ty, tx, th, tw).permute(0, 2, 1, 3).reshape(hp, wp), pcf_rows
+    return untile_rows(config, rows, hp, wp), pcf_rows
 
 
 def shade_gbuffer(
@@ -289,7 +299,11 @@ def shade_gbuffer(
     space xyz, 24:36 atlas regions, 36:40 mr const, 40:43 nm const, 43:47
     combined-atlas region or tile block (base, ntx, h, w)]). ``sun_lut`` /
     ``sun_pyr``: a SunCache's products; ``lut_y_range``: the in-frame
-    table's start_y band. Returns (HDR (3, H_pad, W_pad), penumbra rows)."""
+    table's start_y band. The material tap takes the atlas's route: the
+    u16 tile atlas (K9, grouped with tex_group_caps), the merged quad rows
+    (K6), the unmerged combined quads or the per-slot atlas (plain torch,
+    the sky sampled apart). Returns (HDR (3, H_pad, W_pad), penumbra rows,
+    grouped-tile fallback rows)."""
     atlas, env = buffers.atlas, buffers.environment
     dev = gbuf.device
     hp, wp_ = covered.shape
@@ -313,24 +327,34 @@ def shade_gbuffer(
             gbuf, covered, shadow_map, config, sun_lut, sun_pyr, lut_y_range
         )
 
-    # ONE tap serves texture AND sky: a covered pixel reads its material
-    # texels, an uncovered one its environment quad, from one table.
-    u_sky, v_sky = sky.env_uv_cf(dx, dy, dz)
-    eq, efx, efy = quad_index(env.block_grid, *env.region, u_sky, v_sky)
+    tex_fb_rows = torch.zeros((), dtype=torch.int32, device=dev)
+    background = None
+    nm = mr = None  # None: the material row's constants
+    if atlas.tiles is not None or atlas.combined_env_rows is not None:
+        u_sky, v_sky = sky.env_uv_cf(dx, dy, dz)
+        eq, efx, efy = quad_index(env.block_grid, *env.region, u_sky, v_sky)
     if atlas.tiles is not None:
-        # Reference-scale textures: the u16 tile atlas (K9). Normal and
-        # metal-roughness always come from the textures on this route.
+        # Reference-scale textures: ONE tap of the u16 tile atlas (K9) serves
+        # a covered pixel's 8 material channels and an uncovered one's env
+        # quad. Normal and metal-roughness always come from the textures.
         trow, ty, tx, tfx, tfy = tile_index(
             reg_lane(43, 0.0), reg_lane(44, 1.0), reg_lane(45, 1.0),
             reg_lane(46, 1.0), u_uv, v_uv,
         )
-        idx = torch.where(covered, trow, atlas.tiles_ntex + eq // 8)
-        tap_args = [a.reshape(-1) for a in (idx, ty, tx, eq % 8, tfx, tfy, efx, efy)]
-        out16 = tile_tap_resolve(atlas.tiles, *tap_args).reshape(16, hp, wp_)
-        base_color, nm = out16[0:3], out16[3:6]
-        roughness, metalness = out16[6:7], out16[7:8]
+        if grouped(buffers, config):
+            out16, tex_fb_rows = _grouped_tile_tap(
+                atlas, config, covered, trow, eq, (ty, tx, eq % 8, tfx, tfy, efx, efy)
+            )
+        else:
+            idx = torch.where(covered, trow, atlas.tiles_ntex + eq // 8)
+            tap_args = [a.reshape(-1) for a in (idx, ty, tx, eq % 8, tfx, tfy, efx, efy)]
+            out16 = tile_tap_resolve(atlas.tiles, *tap_args).reshape(16, hp, wp_)
+        base_color, nm, mr = out16[0:3], out16[3:6], (out16[6], out16[7])
         background = out16[8:11]
-    else:
+    elif atlas.combined_env_rows is not None:
+        # ONE tap (K6) serves texture AND sky: a covered pixel reads its
+        # material texels, an uncovered one its environment quad, from one
+        # table.
         tq, tfx, tfy = quad_index(
             atlas.combined_block_grid, reg_lane(43, 0.0), reg_lane(44, 0.0),
             reg_lane(45, 1.0), reg_lane(46, 1.0), u_uv, v_uv,
@@ -342,17 +366,26 @@ def shade_gbuffer(
         idx = torch.where(covered, tq // per, ntex + eq // 8)
         tap_args = [a.reshape(-1) for a in (idx, tq % per, eq % 8, tfx, tfy, efx, efy)]
         out16 = tap_resolve(merged, *tap_args, c4=c4).reshape(16, hp, wp_)
-        nch = c4 // 4
-        background = out16[nch : nch + 3]
-        slot_base = {s: 4 * i for i, s in enumerate(atlas.combined_slots)}
-        base_color = out16[slot_base[0] : slot_base[0] + 3]
-        nm = out16[slot_base[1] : slot_base[1] + 3] if 1 in slot_base else gbuf[40:43]
-        if 2 in slot_base:
-            metalness = out16[slot_base[2] + 2][None]
-            roughness = out16[slot_base[2] + 1][None]
-        else:
-            metalness = gbuf[38:39]  # mr const blue
-            roughness = gbuf[37:38]  # mr const green
+        background = out16[c4 // 4 : c4 // 4 + 3]
+        base_color, nm, mr = _combined_slots(atlas, out16)
+    else:
+        # The unmerged combined quads (texels of another type than the env
+        # rows) or the per-slot atlas: plain torch taps, the sky apart.
+        def region(slot):  # slot None: the combined region
+            first = 43 if slot is None else 24 + 4 * slot
+            return [reg_lane(first + i, float(i > 1)) for i in range(4)]
+
+        base_color, nm, mr = material_taps(atlas, region, u_uv, v_uv)
+    if background is None:
+        background = torch.stack(sky.sample_environment_cf(
+            env_rows_bf16(buffers), env.block_grid, env.region, dx, dy, dz
+        ))
+    if nm is None:
+        nm = gbuf[40:43]  # nm const
+    if mr is None:
+        roughness, metalness = gbuf[37:38], gbuf[38:39]  # mr const green, blue
+    else:
+        roughness, metalness = mr[0][None], mr[1][None]
 
     # get_normal (forward.hlsl:104-112): green flip, [0,1]->[-1,1], TBN.
     nm = torch.cat([nm[0:1], 1.0 - nm[1:2], nm[2:3]])
@@ -370,7 +403,64 @@ def shade_gbuffer(
             buffers, params, config, covered, background, wp, n, wo, lit, base_color,
             metalness, roughness,
         )
-    return hdr, pcf_rows
+    return hdr, pcf_rows, tex_fb_rows
+
+
+def _combined_slots(atlas, planes):
+    """(base colour, normal or None, (roughness, metalness) or None) from
+    the channel planes of a combined-slot tap: slot combined_slots[i] at
+    planes [4i, 4i + 4); None where the slot is not combined (constant)."""
+    base = {s: 4 * i for i, s in enumerate(atlas.combined_slots)}
+    nm = planes[base[1] : base[1] + 3] if 1 in base else None
+    mr = (planes[base[2] + 1], planes[base[2] + 2]) if 2 in base else None
+    return planes[base[0] : base[0] + 3], nm, mr
+
+
+def grouped(buffers: SceneBuffers, config: RenderConfig) -> bool:
+    """Whether the frame takes the grouped tile route (JAX pipeline.py:714)."""
+    groups = buffers.atlas.tile_groups
+    return (buffers.atlas.tiles is not None and groups is not None and len(groups) > 1
+            and config.tex_group_caps is not None and fused(config))
+
+
+def tile_rows(config: RenderConfig, plane: torch.Tensor) -> torch.Tensor:
+    """(..., H_pad, W_pad) -> (..., R, 128): the 128-pixel rows of the
+    tile-major pixel stream (row r = pixels 128r .. 128r + 127 of tile r //
+    (th * tw / 128)), the rows the JAX package's fused frame groups."""
+    th, tw = config.tile_h, config.tile_w
+    lead = plane.shape[:-2]
+    ty, tx = plane.shape[-2] // th, plane.shape[-1] // tw
+    t = plane.reshape(*lead, ty, th, tx, tw).movedim(-2, -3)
+    return t.reshape(*lead, -1, 128)
+
+
+def untile_rows(config: RenderConfig, rows: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """Inverse of tile_rows: (..., R, 128) -> (..., H_pad, W_pad)."""
+    th, tw = config.tile_h, config.tile_w
+    lead = rows.shape[:-2]
+    t = rows.reshape(*lead, hp // th, wp // tw, th, tw).movedim(-3, -2)
+    return t.reshape(*lead, hp, wp)
+
+
+def _grouped_tile_tap(atlas, config, covered, trow, eq, aux):
+    """The grouped tile route over the frame's tile-major 128-pixel rows:
+    (16, H_pad, W_pad) planes equal to the plain tile tap's, and the
+    fallback row count."""
+    groups = atlas.tile_groups
+    if len(config.tex_group_caps) != len(groups) + 1:
+        raise RenderError(f"tex_group_caps {config.tex_group_caps}: the atlas has "
+                          f"{len(groups)} groups, so {len(groups) + 1} caps are needed")
+    hp, wp = covered.shape
+    gid = torch.zeros_like(trow)
+    for g in groups[1:]:
+        gid = gid + (trow >= g[0]).to(torch.int32)
+    rows = [tile_rows(config, p) for p in (covered, trow, eq // 8, gid)]
+    g_lo, g_hi, many = tile_row_groups(rows[0], rows[3], len(groups))
+    out, fb_rows = tile_tap_resolve_grouped(
+        atlas.tiles, groups, config.tex_group_caps, rows[1], rows[0], rows[2], rows[3],
+        g_lo, g_hi, many, [tile_rows(config, a) for a in aux],
+    )
+    return untile_rows(config, out, hp, wp), fb_rows
 
 
 def env_rows_bf16(buffers: SceneBuffers) -> torch.Tensor:
@@ -379,6 +469,8 @@ def env_rows_bf16(buffers: SceneBuffers) -> torch.Tensor:
     on the tile route, the tile atlas's f32 copy rounded to bf16 as the
     build rounds it."""
     atlas, env = buffers.atlas, buffers.environment
+    if env.rows is not None:
+        return env.rows
     if atlas.tiles is None:
         return atlas.combined_env_rows[-env.num_rows :]
     rows = atlas.tiles[atlas.tiles_ntex : atlas.tiles_ntex + env.num_rows]
@@ -466,6 +558,39 @@ def build_shade_table(setup: raster.TriSetup, geom: Geometry, wc) -> torch.Tenso
     return table
 
 
+def material_taps(atlas, region, u, v):
+    """The material tap of the deferred frame and of the fused frame's
+    unmerged and per-slot routes (the JAX package's sample_atlas_multi /
+    sample_quads_flat): (base colour (3, ...), normal (3, ...) or None,
+    (roughness, metalness) or None), None where every material's map of
+    that slot is constant (the material row's constant stands in).
+    ``region(slot)`` gives the 4 region planes (y, x, h, w) of texture slot
+    0-2, ``region(None)`` those of the combined atlas. The per-slot atlas
+    is tapped per non-constant slot, as the JAX package taps it; the
+    combined quads give each combined slot the same texels and fractions
+    (one size per material, constants broadcast)."""
+    if atlas.tiles is not None:
+        raise RenderError(
+            "deferred, brute-force and ray-traced shading have no tile-atlas sampler (the "
+            "per-slot quad tables are skipped at reference texture scale); render with the "
+            "fused path instead"
+        )
+    if atlas.quads is not None:
+        def tap(slot):
+            return sample_quads_flat(atlas.quads, atlas.block_grid, *region(slot), u,
+                                     v).movedim(-1, 0)
+
+        nm = None if atlas.nm_constant else tap(1)[0:3]
+        mr = None if atlas.mr_constant else tuple(tap(2)[1:3])
+        return tap(0)[0:3], nm, mr
+    if atlas.combined_quads is not None:
+        tex = sample_quads_flat(atlas.combined_quads, atlas.combined_block_grid,
+                                *region(None), u, v).movedim(-1, 0)
+    else:
+        tex = sample_atlas_multi(atlas, *region(None), u, v)
+    return _combined_slots(atlas, tex)
+
+
 def shade(
     buffers: SceneBuffers, params: SceneParams, setup: raster.TriSetup, ibuf: torch.Tensor,
     wc, shadow_map: torch.Tensor, config: RenderConfig,
@@ -478,11 +603,7 @@ def shade(
     here, as in the JAX package (its per-slot tables would be GBs)."""
     atlas, env = buffers.atlas, buffers.environment
     if atlas.tiles is not None:
-        raise RenderError(
-            "deferred/brute-force shading has no tile-atlas sampler (the per-slot "
-            "quad tables are skipped at reference texture scale); render with the "
-            "fused path instead"
-        )
+        material_taps(atlas, None, None, None)  # raises: no tile-atlas sampler
     h, w = ibuf.shape
     dev = ibuf.device
     covered = ibuf >= 0
@@ -501,19 +622,17 @@ def shade(
     def cov(plane, fallback):
         return torch.where(covered, plane, fallback)
 
-    tex = sample_atlas_multi(
-        atlas, cov(r[70], 0.0), cov(r[71], 0.0), cov(r[72], 1.0), cov(r[73], 1.0),
-        cov(a[12], 0.0), cov(a[13], 0.0),
-    )
-    slot_base = {s: 4 * i for i, s in enumerate(atlas.combined_slots)}
-    base_color = tex[slot_base[0] : slot_base[0] + 3]
-    nm = tex[slot_base[1] : slot_base[1] + 3] if 1 in slot_base else r[67:70]
-    if 2 in slot_base:
-        metalness = tex[slot_base[2] + 2][None]
-        roughness = tex[slot_base[2] + 1][None]
+    def region(slot):  # uncovered pixels: the region (0, 0, 1, 1)
+        first = 70 if slot is None else 51 + 4 * slot
+        return [cov(r[first + i], float(i > 1)) for i in range(4)]
+
+    base_color, nm, mr = material_taps(atlas, region, cov(a[12], 0.0), cov(a[13], 0.0))
+    if nm is None:
+        nm = r[67:70]  # nm const
+    if mr is None:
+        roughness, metalness = r[64:65], r[65:66]  # mr const green, blue
     else:
-        metalness = r[65:66]  # mr const blue
-        roughness = r[64:65]  # mr const green
+        roughness, metalness = mr[0][None], mr[1][None]
 
     # get_normal (forward.hlsl:104-112): green flip, [0,1]->[-1,1], TBN.
     nm = torch.cat([nm[0:1], 1.0 - nm[1:2], nm[2:3]])
@@ -548,13 +667,13 @@ def render_frame_stats(
 ):
     """Full frame -> ((H, W, 3) uint8, raster health stats).
 
-    stats: cam/shadow pairs and penumbra rows (0-dim device tensors) and
-    their capacities; more than the capacity means a buffer overflowed and
-    the frame is wrong — check_stats() raises then (``debug_overflow`` also
-    logs a warning from here). pcf_row_cap is 1 when classification is off
-    (pcf_rows is then 0); the brute-force frame reports 0 pairs of a cap of
-    1; tex_fb_rows of the JAX package is reported inactive (0 of 1), as its
-    default config does.
+    stats: cam/shadow pairs, penumbra rows and the grouped tile route's
+    fallback rows (0-dim device tensors) and their capacities; more than
+    the capacity means a buffer overflowed and the frame is wrong —
+    check_stats() raises then (``debug_overflow`` also logs a warning from
+    here). pcf_row_cap / tex_fb_cap is 1 when classification / grouping is
+    off (the count is then 0); the brute-force frame reports 0 pairs of a
+    cap of 1.
 
     ``sun_cache`` (a build_sun_cache result) replaces the shadow pass, the
     window table and the pyramid while the sun and the geometry are
@@ -596,13 +715,13 @@ def render_frame_stats(
             _, ibuf, cam_pairs, cam_cap = rasterize(setup, config.height, config.width, config)
     with named_scope("forward_shade_skybox"):
         if is_fused:
-            hdr, pcf_rows = shade_gbuffer(
+            hdr, pcf_rows, tex_fb_rows = shade_gbuffer(
                 buffers, params, gbuf, ibuf >= 0, shadow_map, config, sun_lut, sun_pyr,
                 lut_y_range,
             )
         else:
             hdr = shade(buffers, params, setup, ibuf, wc, shadow_map, config)
-            pcf_rows = torch.zeros((), dtype=torch.int32, device=dev)
+            pcf_rows = tex_fb_rows = torch.zeros((), dtype=torch.int32, device=dev)
 
     with named_scope("post_process"):
         # R16G16B16A16_FLOAT storage rounding (renderer.cpp:128-144).
@@ -617,8 +736,8 @@ def render_frame_stats(
         "shadow_pair_cap": sh_cap,
         "pcf_rows": pcf_rows,
         "pcf_row_cap": pcf_row_capacity(config),
-        "tex_fb_rows": 0,
-        "tex_fb_cap": 1,
+        "tex_fb_rows": tex_fb_rows,
+        "tex_fb_cap": tex_fb_capacity(buffers, config),
     }
     if config.debug_overflow:
         warn_overflow(stats)
@@ -626,14 +745,19 @@ def render_frame_stats(
 
 
 def warn_overflow(stats) -> None:
-    """Log a warning for each pass whose pair buffer overflowed (a host
-    read of the counts: the JAX package prints them from the device)."""
+    """Log a warning for each pass whose pair buffer overflowed, and for
+    grouped-tile fallback rows past their cap (a host read of the counts:
+    the JAX package prints them from the device)."""
     for pass_name in ("cam", "shadow"):
         pairs = int(stats[f"{pass_name}_pairs"])
         cap = int(stats[f"{pass_name}_pair_cap"])
         if pairs > cap:
             log.warning("%s pass: %d tile-triangle pairs > capacity %d (overflowing "
                         "pairs are dropped: the frame misses fragments)", pass_name, pairs, cap)
+    rows, cap = int(stats.get("tex_fb_rows", 0)), int(stats.get("tex_fb_cap", 1))
+    if rows > cap:
+        log.warning("grouped tile route: %d fallback rows > capacity %d (overflowing rows "
+                    "read another row's texels)", rows, cap)
 
 
 def render_frame(buffers, params, settings, config: RenderConfig, sun_cache=None) -> torch.Tensor:
@@ -649,6 +773,12 @@ def pcf_row_capacity(config: RenderConfig) -> int:
         return 1
     pn = config.num_tiles * config.tile_h * config.tile_w
     return shadow.effective_row_cap(pn, config.pcf_row_cap)
+
+
+def tex_fb_capacity(buffers: SceneBuffers, config: RenderConfig) -> int:
+    """The grouped tile route's fallback row capacity (1 = grouping off:
+    tex_fb_rows is then always 0)."""
+    return int(config.tex_group_caps[-1]) if grouped(buffers, config) else 1
 
 
 def build_sun_cache(buffers: SceneBuffers, params: SceneParams, config: RenderConfig):
@@ -689,6 +819,15 @@ def check_stats(stats) -> None:
             f"PCF penumbra rows overflowed the compaction buffer ({rows} rows > "
             f"capacity {cap}): overflowing rows got another row's shadow values. "
             f"Raise RenderConfig.pcf_row_cap."
+        )
+    rows = int(stats.get("tex_fb_rows", 0))
+    cap = int(stats.get("tex_fb_cap", 1))
+    if rows > cap:
+        raise RenderError(
+            f"grouped-tile fallback rows overflowed ({rows} rows > capacity {cap}): "
+            f"overflowing rows got another row's texture values. Raise "
+            f"RenderConfig.tex_group_caps[-1] (or re-run pipeline.autotune_tex_group_caps "
+            f"with a bigger margin)."
         )
 
 
@@ -736,6 +875,99 @@ def autotune_pair_caps(
         return max(bucket, -(-need // bucket) * bucket)
 
     return dataclasses.replace(config, pair_cap_cam=cap(cam), pair_cap_shadow=cap(sh))
+
+
+def _camera_rows(buffers: SceneBuffers, params, config: RenderConfig):
+    """The camera pass of a frame through its own front end (camera_setup,
+    binning, K1), as the fused frame's tile-major 128-pixel rows: (covered
+    (R, 128), material id (R, 128), junk where not covered)."""
+    geom = buffers.geometry
+    if geom.tri_material is None:
+        raise RenderError("the geometry carries no tri_material (build it with build_buffers)")
+    wc = world_corners(geom)
+    tri_valid = torch.arange(geom.capacity, device=buffers.device) < geom.num_tris
+    setup = camera_setup(wc, tri_valid, params.camera.proj_view(), config)
+    _, ibuf, _ = raster_tiles.bin_and_rasterize(
+        setup, config, config.tiles_x, config.tiles_y, config.tile_h, config.tile_w
+    )
+    rows = tile_rows(config, ibuf)
+    covered = rows >= 0
+    slot = torch.where(covered, rows, 0) % geom.capacity  # clip slots are [tri; tri]
+    return covered, geom.tri_material[slot.long()]
+
+
+def measure_tex_group_rows(buffers: SceneBuffers, params, config: RenderConfig):
+    """The grouped tile route's row needs of a frame (JAX pipeline.py:
+    1278-1330): (G + 1,) ints, the rows each material group claims and the
+    fallback rows of more than two groups, max over ``params`` (one
+    SceneParams or a list, a camera path). The rows and their claims are
+    the frame's own (tile_row_groups over the same tile-major rows), so caps
+    sized from these cover the frames of that path."""
+    use_full_f32()
+    atlas = buffers.atlas
+    g_n = len(atlas.tile_groups)
+    group_of = torch.tensor(atlas.tile_group_of, dtype=torch.int32, device=buffers.device)
+    need = torch.zeros(g_n + 1, dtype=torch.int64)
+    for p in params if isinstance(params, (list, tuple)) else [params]:
+        covered, mat = _camera_rows(buffers, p, config)
+        g_lo, g_hi, many = tile_row_groups(covered, group_of[mat.long()], g_n)
+        counts = [(~many & ((g_lo == g) | (g_hi == g))).sum() for g in range(g_n)]
+        need = torch.maximum(need, torch.stack(counts + [many.sum()]).cpu())
+    return need.numpy()
+
+
+def measure_tex_row_masks(buffers: SceneBuffers, params, config: RenderConfig):
+    """Per-128-pixel-row material bitmasks over a params list: (F, R)
+    int64 host array, bit m set where a covered pixel of the row shows
+    material m (up to 64 materials; JAX pipeline.py:1333-1382). The input
+    of io/texplan.plan_material_groups."""
+    use_full_f32()
+    out = []
+    for p in params if isinstance(params, (list, tuple)) else [params]:
+        covered, mat = _camera_rows(buffers, p, config)
+        shown = torch.zeros((mat.shape[0], 64), dtype=torch.int64, device=mat.device)
+        rows = torch.arange(mat.shape[0], device=mat.device)[:, None].expand_as(mat)
+        shown[rows[covered], mat[covered].long()] = 1
+        bit = torch.arange(64, device=mat.device)
+        out.append((shown << bit).sum(dim=1).cpu().numpy())  # distinct bits: sum == or
+    return np.stack(out)
+
+
+def plan_tex_groups(buffers: SceneBuffers, params, config: RenderConfig):
+    """Measure row masks over a camera path and anneal a material grouping
+    (io/texplan). Returns the groups for build_buffers(tex_groups=...), or
+    None for a scene without a multi-group tile atlas (or over 64
+    materials); then size the caps with autotune_tex_group_caps on the
+    rebuilt scene. Each group's row budget is the one the scene was built
+    with (the JAX package plans with its default budget whatever the build
+    used)."""
+    atlas = buffers.atlas
+    groups = atlas.tile_groups
+    if groups is None or len(groups) <= 1 or len(atlas.tile_group_of) > 64:
+        return None
+    from arctic_tpu_torch.io.texplan import plan_material_groups
+
+    env_rows = groups[0][2] - groups[0][1]
+    masks = measure_tex_row_masks(buffers, params, config)
+    plan, _ = plan_material_groups(masks, list(atlas.tile_mat_rows), env_rows,
+                                   atlas.tile_group_budget // 512)
+    return plan
+
+
+def autotune_tex_group_caps(
+    buffers: SceneBuffers, params, config: RenderConfig, margin: float = 1.1
+) -> RenderConfig:
+    """``config`` with tex_group_caps sized to a scene and camera path: the
+    measured rows of each group and of the fallback times ``margin`` plus
+    32, rounded up to a multiple of 32. The tap's work scales with the
+    caps' sum; a later frame past the fallback cap fails check_stats. No
+    change for a scene without a multi-group tile atlas."""
+    groups = buffers.atlas.tile_groups
+    if buffers.atlas.tiles is None or groups is None or len(groups) <= 1:
+        return config
+    need = measure_tex_group_rows(buffers, params, config)
+    caps = tuple(max(32, -(-int(n * margin + 32) // 32) * 32) for n in need)
+    return dataclasses.replace(config, tex_group_caps=caps)
 
 
 def _check_device(buffers: SceneBuffers, device: torch.device) -> None:

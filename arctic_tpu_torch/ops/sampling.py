@@ -3,8 +3,10 @@ parts of arctic_tpu/ops/sampling.py the frames use: around two CUDA
 kernels, K6 ``tap_resolve`` (csrc/tap_resolve.cu) for _tap_resolve_kernel,
 the merged bf16 quad table of small texture sets, and K9
 ``tile_tap_resolve`` (csrc/tile_tap_resolve.cu) for _tile_tap_resolve_kernel,
-the u16 tile atlas of reference-scale texture sets (the fused frame); and
-``sample_atlas_multi`` in plain torch (the deferred frame).
+the u16 tile atlas of reference-scale texture sets (the fused frame), also
+per material group (``tile_tap_resolve_grouped``); and in plain torch
+``sample_atlas_multi`` (the deferred frame) and ``sample_quads_flat`` (the
+per-slot and unmerged taps).
 
 Bilinear filtering is ``t = uv * size - 0.5``, texel pair floor(t) and
 floor(t) + 1, fractional lerp, with WRAP applied per texel in region-local
@@ -213,3 +215,117 @@ def tile_tap_resolve(table, idx, ty, tx, eq, tfx, tfy, efx, efy):
     kernels.launch("arctic_tile_tap_resolve", table, idx, ty, tx, eq, tfx, tfy, efx, efy, n, out)
     tile_tap_resolve.launches += 1
     return out
+
+
+def sample_quads_flat(quads, block_grid, ry, rx, rh, rw, u, v):
+    """Bilinear tap from a quad table (rows [c00 | c10 | c01 | c11] of C
+    channels each; JAX sampling.py:130): the per-slot and the unmerged
+    combined taps. Region fields are planes (or ints) of u's shape;
+    returns (..., C) f32, the quads' texels widened from the table's type
+    and lerped in f32."""
+    q, fx, fy = quad_index(block_grid, ry, rx, rh, rw, u, v)
+    win = quads[q.long()].to(torch.float32)  # (..., 4C)
+    c = win.shape[-1] // 4
+    fx, fy = fx[..., None], fy[..., None]
+    top = win[..., :c] + (win[..., c : 2 * c] - win[..., :c]) * fx
+    bot = win[..., 2 * c : 3 * c] + (win[..., 3 * c :] - win[..., 2 * c : 3 * c]) * fx
+    return top + (bot - top) * fy
+
+
+def tile_row_groups(covered, gid_pix, n_groups: int):
+    """Material-group claims of 128-pixel rows (JAX sampling.py:461):
+    covered / gid_pix are (R, 128), gid_pix each covered pixel's group.
+    Returns (g_lo, g_hi, many): the lowest and highest group the row's
+    covered pixels touch (0 and 0 for a row with none: its env reads live
+    in every group's slice) and whether more than two groups are touched."""
+    gmin = torch.where(covered, gid_pix, n_groups).amin(dim=1)
+    gmax = torch.where(covered, gid_pix, -1).amax(dim=1)
+    has_cov = gmax >= 0
+    g_lo = torch.where(has_cov, gmin, 0)
+    g_hi = torch.where(has_cov, gmax, 0)
+    mid = covered & (gid_pix != g_lo[:, None]) & (gid_pix != g_hi[:, None])
+    return g_lo, g_hi, mid.any(dim=1)
+
+
+def _first_rows(mask, cap: int):
+    """The indices of the first ``cap`` rows, those with ``mask`` set in
+    row order, then the others in row order (a stable compaction)."""
+    return torch.argsort((~mask).to(torch.int8), stable=True)[:cap]
+
+
+def tile_tap_resolve_grouped(tiles, groups, caps, trow, covered, eqd, gid_pix, g_lo, g_hi,
+                             many, aux):
+    """The grouped tile route's tap (JAX sampling.py:486-597) over R rows of
+    128 pixels. A row claims every group its covered pixels touch (at most
+    two); the rows of group g are compacted (stable, in row order) and
+    K9 resolves the first caps[g] of them from the group's table, its
+    per-pixel rows given as indices into that table. Rows of more than two
+    groups, or past a claimed group's cap, take the full-table fallback,
+    the first caps[-1] of them. Every pixel reads the row and the aux values
+    the plain full-table tap reads, so the planes are the same bit for bit;
+    a row past the fallback's cap reads another row's values, and the
+    returned count (a 0-dim tensor) > caps[-1] says so (check_stats raises).
+
+    tiles: (N, 128) i32 tile atlas; groups: TextureAtlas.tile_groups;
+    caps: len(groups) + 1 row capacities; trow / covered / eqd / gid_pix:
+    (R, 128) absolute tile row, coverage, env quad row offset (eq // 8)
+    and group of each pixel; g_lo / g_hi / many: tile_row_groups; aux: the
+    7 (R, 128) planes K9 takes after its row (ty, tx, eq % 8, tfx, tfy,
+    efx, efy). Each group's table is a view of its rows of ``tiles``, no
+    copy. Returns ((16, R, 128) f32, fallback rows). Launches K9
+    len(groups) + 1 times. Unlike the JAX package's, the rows are not
+    padded to a multiple of 32, so no padding row takes a group's room."""
+    g_n = len(groups)
+    if len(caps) != g_n + 1 or any(c <= 0 for c in caps):
+        raise ValueError(f"caps {caps}: need {g_n + 1} positive capacities")
+    r = trow.shape[0]
+    caps = tuple(min(int(c), r) for c in caps)  # a cap never needs more than all rows
+    ranks, kepts = [], []
+    for g in range(g_n):
+        member = ~many & ((g_lo == g) | (g_hi == g))
+        rank = torch.cumsum(member.to(torch.int32), 0) - 1
+        kepts.append(member & (rank < caps[g]))
+        ranks.append(rank)
+    # A dual row that spills either claimed cap takes the fallback whole.
+    ok_lo = torch.zeros_like(many)
+    ok_hi = torch.zeros_like(many)
+    for g in range(g_n):
+        ok_lo = ok_lo | ((g_lo == g) & kepts[g])
+        ok_hi = ok_hi | ((g_hi == g) & kepts[g])
+    fb = many | ~(ok_lo & ok_hi)
+    fb_rank = torch.cumsum(fb.to(torch.int32), 0) - 1
+    fb_rows = fb.sum(dtype=torch.int32)
+
+    outs = []
+    for g in range(g_n):
+        lo, env_base, hi = groups[g][:3]
+        order = _first_rows(kepts[g], caps[g])
+        # A covered pixel reads its tile row, an uncovered one this group's
+        # env copy; the other group's pixels of a dual row read junk inside
+        # the slice, which the reassembly below never picks.
+        idx = torch.clamp(torch.where(covered, trow - lo, (env_base - lo) + eqd), 0, hi - lo - 1)
+        outs.append(tile_tap_resolve(tiles[lo:hi], idx[order].reshape(-1),
+                                     *(a[order].reshape(-1) for a in aux)))
+    order = _first_rows(fb, caps[g_n])
+    idx = torch.clamp(torch.where(covered, trow, groups[0][1] + eqd), 0, tiles.shape[0] - 1)
+    outs.append(tile_tap_resolve(tiles, idx[order].reshape(-1),
+                                 *(a[order].reshape(-1) for a in aux)))
+
+    stream = torch.cat(outs, dim=1).view(16, -1, 128)  # (16, sum(caps), 128)
+    offs = [0]
+    for c in caps:
+        offs.append(offs[-1] + c)
+    srow_lo = torch.zeros_like(fb_rank)
+    srow_hi = torch.zeros_like(fb_rank)
+    for g in range(g_n):
+        at = offs[g] + torch.clamp(ranks[g], 0, caps[g] - 1)
+        srow_lo = torch.where(~fb & (g_lo == g), at, srow_lo)
+        srow_hi = torch.where(~fb & (g_hi == g), at, srow_hi)
+    fb_at = offs[g_n] + torch.clamp(fb_rank, 0, caps[g_n] - 1)
+    srow_lo = torch.where(fb, fb_at, srow_lo).long()
+    srow_hi = torch.where(fb, fb_at, srow_hi).long()
+    # A covered pixel of the row's high group reads the hi stream, every
+    # other pixel the lo stream (the same row on single-group and fallback
+    # rows).
+    pick_hi = covered & (gid_pix == g_hi[:, None])
+    return torch.where(pick_hi[None], stream[:, srow_hi], stream[:, srow_lo]), fb_rows

@@ -30,6 +30,7 @@ from arctic_tpu_torch.core.scene import (
     SunCache,
     TextureAtlas,
 )
+from arctic_tpu_torch.io.build import TEX_GROUP_BUDGET_BYTES
 from arctic_tpu_torch.ops.shadow import lut_pitch
 
 
@@ -51,8 +52,10 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def scene_buffers(jb, device="cpu") -> SceneBuffers:
-    """JAX-package SceneBuffers (the combined quad atlas or the ungrouped
-    tile atlas) -> SceneBuffers."""
+    """JAX-package SceneBuffers -> SceneBuffers, on the JAX frame's texture
+    route: the merged quad rows (combined quads of the environment rows'
+    type), the unmerged combined quads, the per-slot atlas or the tile atlas
+    (with its groups and, for explicit groups, their tables)."""
     g, a, e = jb.geometry, jb.atlas, jb.environment
     geometry = Geometry(
         num_tris=int(np.asarray(g.num_tris)),
@@ -61,29 +64,57 @@ def scene_buffers(jb, device="cpu") -> SceneBuffers:
         tri_static_attrs=tensor(g.tri_static_attrs, device),
         tri_matrow=tensor(g.tri_matrow, device),
         slot_static_rows=None if g.slot_static_rows is None else tensor(g.slot_static_rows, device),
+        tri_material=tensor(g.tri_material, device),
     )
+    flags = dict(nm_constant=bool(a.nm_constant), mr_constant=bool(a.mr_constant))
+    env_rows = None
     if a.tiles is not None:
         atlas = TextureAtlas(
             tiles=tensor(a.tiles, device),
             tiles_ntex=int(a.tiles_ntex),
             tile_groups=tuple(tuple(int(v) for v in grp) for grp in a.tile_groups),
+            tile_group_of=None if a.tile_group_of is None else tuple(a.tile_group_of),
+            tile_mat_rows=None if a.tile_mat_rows is None else tuple(a.tile_mat_rows),
+            tile_group_budget=TEX_GROUP_BUDGET_BYTES,
+            **flags,
         )
-    elif a.combined_env_rows is not None:
+    elif a.combined_env_rows is not None and (
+            np.asarray(a.combined_quads).dtype == np.asarray(e.atlas.quads_packed).dtype):
         atlas = TextureAtlas(
             combined_slots=tuple(a.combined_slots),
             combined_shape=tuple(a.combined_shape),
             quad_width=int(np.asarray(a.combined_quads).shape[-1]),
             combined_env_rows=tensor(a.combined_env_rows, device),
+            **flags,
         )
     else:
-        raise ValueError("scene buffers with neither the tile atlas nor the merged "
-                         "texture+environment table")
+        env_rows = tensor(e.atlas.quads_packed, device)
+        if a.combined_slots is not None:
+            atlas = TextureAtlas(
+                combined_slots=tuple(a.combined_slots),
+                combined_shape=tuple(a.combined_shape),
+                quad_width=int(np.asarray(a.combined_quads).shape[-1]),
+                combined_quads=tensor(a.combined_quads, device),
+                **flags,
+            )
+        else:
+            atlas = TextureAtlas(quads=tensor(a.quads, device),
+                                 data_shape=tuple(np.asarray(a.data).shape[:2]), **flags)
     env = Environment(
         region=tuple(int(v) for v in np.asarray(e.atlas.regions)[0, 0]),
         data_shape=tuple(np.asarray(e.atlas.data).shape[:2]),
         num_rows=int(np.asarray(e.atlas.quads_packed).shape[0]),
+        rows=env_rows,
     )
     return SceneBuffers(geometry=geometry, atlas=atlas, environment=env)
+
+
+def bvh(jbvh, device="cpu"):
+    """A JAX-package rt.BVH -> ops/rt.BVH (bit for bit), so both packages
+    trace one tree."""
+    from arctic_tpu_torch.ops.rt import BVH
+
+    return BVH(**{f: tensor(getattr(jbvh, f), device) for f in BVH.FIELDS})
 
 
 def scene_params(jp) -> SceneParams:

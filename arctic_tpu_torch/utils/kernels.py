@@ -54,6 +54,8 @@ _SIGNATURES = {
     "arctic_pack_shade_rows_tm": (_P, _P, _P, _I, _I, _I, _P, _P),
     "arctic_window_lut": (_P, _I, _I, _I, _P, _P),
     "arctic_pcf_resolve": (_P, _I, _P, _P, _I, _P, _P),
+    "arctic_bvh_trace": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                         _P, _P, _P, _P, _P),
 }
 # C signatures of the queries (no stream); each returns its cudaError_t.
 _QUERIES = {

@@ -33,6 +33,14 @@ side), and rows_used at 0, below the list's length and equal to it. Given
 the stride of the kernel's grid (``shadow.pcf_eval_stride`` on the card),
 ``k8_strided`` lists enough rows for several passes of the whole grid, with
 rows_used just below and just above a multiple of the stride.
+
+K14: rays against a small scene (a box, a sphere, a floor quad and two
+copies of one triangle under different ids) in every case a stackless
+walk must get right: axis-parallel directions and components below the
+1e-20 clamp, rays through the boxes' shared edges and corners and along
+their faces, origins inside node boxes and on surfaces, the coplanar
+duplicates (the first in leaf order wins), per-ray t_max of 0, inf, 2
+and 5 (some hits nearer, some farther), and an empty scene.
 """
 
 from __future__ import annotations
@@ -336,3 +344,90 @@ def k8_inputs(device, rows_used: int, seed: int = 0, order_len: int = K8_ORDER_L
             dev(np.array([rows_used], np.int32)), dev(y0.astype(np.int32)),
             dev(x0.astype(np.int32)), dev(z), dev(lx), dev(ly), offsets)
     return args, {}
+
+
+K14_CASES = ("axis", "grazing", "inside", "coplanar", "t_max", "empty")
+
+
+def k14_scene() -> np.ndarray:
+    """(T, 3, 3) f32 world triangles: a unit box at the origin, a sphere at
+    (3, 0, 0), a floor quad at y = -1 and one triangle twice (ids T-2 and
+    T-1, the same corners)."""
+    from arctic_tpu_torch.io.procedural import box_mesh, plane_mesh, uv_sphere
+
+    parts = []
+    for mesh, offset in ((box_mesh(2.0, 2.0, 2.0), (0.0, 0.0, 0.0)),
+                         (uv_sphere(1.0, 8, 12), (3.0, 0.0, 0.0)),
+                         (plane_mesh(12.0), (0.0, -1.0, 0.0))):
+        parts.append(mesh.positions[mesh.indices] + np.asarray(offset, np.float32))
+    dup = np.asarray([[[-2.0, 2.0, -3.0], [2.0, 2.0, -3.0], [0.0, 4.0, -3.0]]], np.float32)
+    return np.concatenate(parts + [dup, dup]).astype(np.float32)
+
+
+def _unit(d):
+    return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def k14_rays(case: str, seed: int = 0, n: int = 1000):
+    """(tris, origin (R, 3), direction (R, 3), t_max float or (R,)) of one
+    K14 case, as numpy f32."""
+    rng = np.random.default_rng(seed)
+    tris = k14_scene()
+    t_max = 3.0e38
+    if case == "axis":
+        o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+        d = np.zeros((n, 3), np.float32)
+        d[np.arange(n), rng.integers(0, 3, n)] = rng.choice([-1.0, 1.0], n)
+        tiny = rng.uniform(0, 1, (n, 3)) < 0.3
+        d = np.where(tiny & (d == 0), rng.choice([1e-25, -1e-25, 1e-21, 0.0], (n, 3)), d)
+        d = d.astype(np.float32)
+    elif case == "grazing":
+        # Aim at box corners, edge midpoints and face centres, and along
+        # the faces' planes (origins on the planes y = +-1, x = +-1).
+        pts = np.stack(np.meshgrid([-1.0, 0.0, 1.0], [-1.0, 0.0, 1.0], [-1.0, 0.0, 1.0]),
+                       -1).reshape(-1, 3)
+        target = pts[rng.integers(0, len(pts), n)].astype(np.float32)
+        o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+        d = _unit(target - o)
+        k = n // 4
+        o[:k, 1] = rng.choice([-1.0, 1.0], k)
+        d[:k, 1] = 0.0
+        o[k : 2 * k, 0] = rng.choice([-1.0, 1.0], k)
+        d[k : 2 * k, 0] = 0.0
+    elif case == "inside":
+        o = rng.uniform(-0.99, 0.99, (n, 3)).astype(np.float32)  # inside the box
+        o[: n // 3] += np.asarray([3.0, 0.0, 0.0], np.float32)  # inside the sphere's box
+        o[n // 3 : n // 2, 1] = -1.0  # on the floor
+        d = _unit(rng.normal(0, 1, (n, 3)))
+    elif case == "coplanar":
+        o = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(2.1, 3.5, n),
+                      rng.uniform(-8, -4, n)], 1).astype(np.float32)
+        o[n // 2 :, 2] = rng.uniform(-1.5, 6, n - n // 2)
+        d = np.zeros((n, 3), np.float32)
+        d[:, 2] = np.where(o[:, 2] < -3.0, 1.0, -1.0)
+    elif case == "t_max":
+        o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+        d = _unit(rng.uniform(-1, 1, (n, 3)) * 0.3 - o * 0.2)
+        t_max = rng.choice(np.asarray([0.0, np.inf, 2.0, 5.0], np.float32), n).astype(np.float32)
+    elif case == "empty":
+        tris = np.zeros((0, 3, 3), np.float32)
+        o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+        d = _unit(rng.normal(0, 1, (n, 3)))
+    else:
+        raise KeyError(case)
+    return tris, o, d, t_max
+
+
+def k14_inputs(device, case: str, any_hit: bool, seed: int = 0):
+    """One K14 call's (args, kwargs) for ``case`` on ``device``: (bvh,
+    origin, direction, t_max, any_hit)."""
+    import torch
+
+    from arctic_tpu_torch.ops.rt import build_bvh
+
+    tris, o, d, t_max = k14_rays(case, seed)
+    if not np.isscalar(t_max):
+        t_max = torch.from_numpy(t_max).to(device)
+    return (build_bvh(tris, device=device), torch.from_numpy(o).to(device),
+            torch.from_numpy(d).to(device), t_max, any_hit), {}
+

@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 The real-size default scene comes through bench.py's GLB + HDR round trip
-(phase 4), and the CLI renders a GLB (phase 4g). Four frame paths are
-driven: the default one (exact f32 PCF; kernels K1
+(phase 4), and the CLI renders a GLB (phase 4g). The per-slot, unmerged
+and grouped texture routes and the ray-traced mode (K14 bvh_trace) run
+last (3i-3l, 4j-4l). Four frame paths are driven first: the default one (exact f32 PCF; kernels K1
 raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve), the
 quantised PCF path of RenderConfig.pcf_row_cap (the same four plus K7
 window_lut_q and K8 pcf_eval), with and without a sun cache, the textured
@@ -105,8 +106,43 @@ which raises on failure (exit code != 0):
    spotlights, the bench rig plus a spotlight above the nave): the
    fly-through (K1, K3, K4, K6), frame 0 within 1 LSB of the deferred frame
    with the same options on >= 99% of the pixels;
+3i. (after 4i, as are 3j-3l and 4j-4l, so that every earlier path keeps
+   its allocator history) the per-slot route: Cornell with each normal
+   map half its diffuse map's size (procedural.per_slot_materials), on
+   the per-slot atlas: K1, K3 and K4 and no other kernel (no K6, no K9),
+   within 1 LSB of the port's CPU frame on < 1% of the values, >= 40 dB
+   against the f64 oracle of those materials;
+3j. the unmerged combined route: Cornell with atlas_dtype=torch.float32
+   (f32 combined quads, bf16 env rows apart), the same gates;
+3k. the grouped tile route: tests/test_tex_groups.py's six materials at
+   128 x 128 with explicit groups and caps from autotune_tex_group_caps:
+   the frame bit-equal to the same buffers' ungrouped tile frame, K9
+   launched once a group and once for the fallback (G + 1), a starved
+   fallback cap making check_stats raise;
+3l. the ray-traced entry frame with the point light and a spotlight:
+   primary and sun rays, then rt_light_shadows, then the cone too: K14 2
+   (+ 1 a light with rt_light_shadows) times and no other kernel, each
+   within 1 LSB of the port's CPU ray-traced frame on < 1% of the values;
+4j. the grouped tile route at real size on 4d's textured scene:
+   plan_tex_groups over bench.py's 20 viewpoints, the scene rebuilt with
+   the plan, autotune_tex_group_caps(margin=1.1), the fly-through (K9 G + 1
+   times a frame, each group's on a view of its rows of the atlas), each
+   frame bit-equal to 4d's at its viewpoint; G, the caps, tex_fb_rows, the
+   peak memory and the build and plan seconds printed;
+4k. the ray-traced mode on phase 4's loaded scene: the BVH's build
+   seconds, nodes and bytes, the fly-through (K14 twice a frame, no other
+   kernel), one frame with rt_light_shadows and the 4 lights (K14 six
+   times); on frame 0 the primary hit's triangle equals the raster ibuf's
+   (modulo the clip-slot duplication) on >= 99% of the pixels both cover
+   whose hit faces the camera, and on >= 99.9% of those off the edges of
+   the raster's triangles (the coverage mismatch share printed);
+4l. the per-slot atlas at real size: the bench geometry with 24 materials
+   of 192^2 diffuse and 96^2 normal maps, its own tuned caps, the
+   fly-through (K1, K3, K4), frame 0 within 1 LSB of its deferred frame on
+   >= 99% of the pixels; median and peak printed;
 5. kernels against their plain torch versions on the card, on the exact
-   inputs the entry and real-size frames gave them (recorded): bit-exact
+   inputs the entry and real-size frames gave them (recorded; K14 on every
+   ray of the real-size calls, frame 0's and the light-shadow frame's): bit-exact
    equality, CUDA-event times of kernel and plain version at the real-size
    shapes (K1 also per call: camera, shadow), and each kernel's bound on
    these inputs (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
@@ -123,12 +159,17 @@ which raises on failure (exit code != 0):
    bf16 lanes; K8 on a map whose table pitch is s + 4, windows at the last
    column and row, rows_used at 0, below and at the list's length, and a
    list of several passes of K8's grid with rows_used just below and just
-   above a multiple of its stride),
-   bit-exact against their plain versions. The real-size quad width and
+   above a multiple of its stride; K14 on axis-parallel and sub-clamp
+   directions, grazing edges and faces, origins inside boxes, coplanar
+   duplicates, per-ray t_max of 0 and inf, and an empty scene),
+   bit-exact against their plain versions. K14's bound counts the node
+   visits and triangle tests the plain version reports on every 64th ray,
+   scaled to all rays. The real-size quad width and
    K8's live / listed rows are printed, and the share of the quantised
    frame 0's warps that take K8's fast selects, with K8's time on the same
    inputs when no warp takes them.
 
+The wall seconds of the whole run are printed before the last two lines.
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Frames are saved under build/chip_smoke/ as
 .npy. The goldens and the CLI's PNGs are decoded by the port's io/images
@@ -193,6 +234,25 @@ REAL_SPOT = ((0.0, 8.0, 0.0), (200.0, 200.0, 200.0), ((0.0, -1.0, 0.0), 20.0, 35
 # The deferred real-size frames' share of pixels within 1 LSB of the
 # default path's frame at the same viewpoint.
 DEFERRED_NEAR_SHARE = 0.99
+# The per-slot and unmerged routes' kernels (no K6, no K9); the ray-traced
+# frame's only kernel.
+PER_SLOT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp")
+RT_PATH = ("bvh_trace",)
+# 3k: tests/test_tex_groups.py's six materials at 128 x 128 in groups of
+# at most 220 tile rows, laid out as three explicit groups.
+GROUPED_SIZE = 128
+GROUPED_BUDGET = 220 * 512
+GROUPED_EXPLICIT = [[0, 5], [1, 4], [2, 3]]
+# 4j: the grouped caps' headroom over the measured rows (bench.py's).
+TEX_GROUP_MARGIN = 1.1
+# 4k: the lockstep plain version's work on every K14_SAMPLE-th real-size
+# ray, scaled by K14_SAMPLE, gives K14's bound.
+K14_SAMPLE = 64
+RT_AGREE_SHARE = 0.99
+RT_CORE_AGREE_SHARE = 0.999
+# 4l: 24 materials with 192^2 diffuse and metal-roughness maps and 96^2
+# normal maps (24 x 192^2 = 884,736 texels, under the 1M tile threshold).
+PER_SLOT_TEXTURE = 192
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -210,7 +270,6 @@ def entry_scene(device, pcf_row_cap=None, textured=False, full_stack=False):
     atlas (tile_threshold_texels=0), ``full_stack`` drops the geometry's
     slot_static_rows (the full-stack shade-row route)."""
     from arctic_tpu_torch.core.config import RenderConfig
-    from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
     from arctic_tpu_torch.io.build import build_buffers
     from arctic_tpu_torch.io.procedural import cornell_like_scene
 
@@ -221,9 +280,7 @@ def entry_scene(device, pcf_row_cap=None, textured=False, full_stack=False):
                          tile_threshold_texels=0 if textured else None)
     if full_stack:
         bufs = full_stack_buffers(bufs)
-    params = default_scene_params(aspect=w / h)
-    params.camera = make_camera(ENTRY["eye"], ENTRY["rot"], w / h)
-    return config, scene, bufs, params, default_settings()
+    return (config, scene, bufs, *entry_params())
 
 
 def full_stack_buffers(bufs):
@@ -880,7 +937,8 @@ def fly_through(render, bufs, frames, path, label, *extra, absent=()):
     log(f"{label} launches over {len(frames)} frames: {counts}")
     check_launches(counts, path, label, absent)
     for st in all_stats:
-        pipeline.check_stats(st)
+        if st is not None:  # the ray-traced frame has no capacities to check
+            pipeline.check_stats(st)
     return times, all_stats, [im.cpu().numpy() for im in imgs], counts, (peak, resident)
 
 
@@ -1284,7 +1342,561 @@ def run_textured(device, profile: bool = False):
         f"move of z_near changes")
     if g["near"] < GOLDEN_NEAR_SHARE or g["near_db"] < GOLDEN_MIN_DB:
         raise RuntimeError(f"textured frame 19 fails its golden gate: {g}")
-    return summary, calls, counts
+    return summary, calls, counts, config, imgs
+
+
+def entry_params(lights=None):
+    """The entry camera (and ``lights``' rows as a cone-carrying bank)."""
+    from arctic_tpu_torch.core.scene import (
+        PointLights, default_scene_params, default_settings, make_camera,
+    )
+
+    w, h = ENTRY["width"], ENTRY["height"]
+    params = default_scene_params(aspect=w / h)
+    params.camera = make_camera(ENTRY["eye"], ENTRY["rot"], w / h)
+    if lights is not None:
+        params.point_lights = PointLights.from_list(lights, spots=True)
+    return params, default_settings()
+
+
+def run_entry_route(label: str, name: str, scene, **build_kw):
+    """3i / 3j: the entry scene ``scene`` built with ``build_kw`` on the card
+    and on the CPU: its fused frame launches K1, K3 and K4 and no other
+    kernel (no K6, no K9), is within 1 LSB of the port's CPU frame on < 1%
+    of the values and >= 40 dB against the f64 oracle of the scene's
+    material images. Returns the recorded kernel calls."""
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.core.config import RenderConfig
+    from arctic_tpu_torch.io.build import build_buffers
+    from arctic_tpu_torch.models import golden, pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    config = RenderConfig(width=ENTRY["width"], height=ENTRY["height"], shadow_size=ENTRY["shadow"])
+    params, settings = entry_params()
+    bufs = build_buffers(*scene, tri_bucket=256, device="cuda", **build_kw)
+    a = bufs.atlas
+    route = ("per-slot atlas" if a.quads is not None else "unmerged combined quads"
+             if a.combined_quads is not None else "other")
+    log(f"{label} scene: the {route} ({', '.join(str(t.dtype) for t in (a.quads, a.combined_quads) if t is not None)}), "
+        f"nm_constant {a.nm_constant}, mr_constant {a.mr_constant}")
+    kernels.reset_launch_counts()
+    with kernels.record_calls() as calls:
+        img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"{label} frame launches: {counts}")
+    check_launches(counts, PER_SLOT_PATH, label,
+                   absent=tuple(k for k in counts if k not in PER_SLOT_PATH))
+    pipeline.check_stats(stats)
+    img = img.cpu().numpy()
+    cpu_bufs = build_buffers(*scene, tri_bucket=256, device="cpu", **build_kw)
+    img_cpu, _ = pipeline.render_frame_stats(cpu_bufs, params, settings, config)
+    lsb_gate(img, img_cpu.numpy(), label, "the port's CPU frame")
+    db = golden.psnr(img, golden_frame(scene, params, settings, config))
+    log(f"{label} frame PSNR vs f64 golden oracle: {db:.2f} dB")
+    if db < 40.0:
+        raise RuntimeError(f"{label} frame PSNR {db:.2f} dB < 40 dB")
+    np.save(os.path.join(OUT_DIR, f"chip_smoke_entry_{name}.npy"), img)
+    return calls
+
+
+def grouped_scene():
+    """tests/test_tex_groups.py's six materials, each on its own object."""
+    from arctic_tpu_torch.io import procedural as pr
+
+    meshes = [pr.plane_mesh(8.0, material=0, uv_scale=2.0), pr.box_mesh(2.0, 2.0, 2.0, material=1),
+              pr.uv_sphere(1.0, 8, 12, material=2), pr.box_mesh(1.0, 3.0, 1.0, material=3),
+              pr.uv_sphere(0.8, 8, 12, material=4), pr.box_mesh(3.0, 1.0, 1.0, material=5)]
+    offsets = [(0, 0, 0), (-2.0, 1.0, 0.0), (2.0, 1.0, 0.0), (0.0, 1.5, -2.0), (-1.0, 0.8, 2.0),
+               (1.5, 0.5, 2.5)]
+    objects = [(pr.transform(t), i) for i, t in enumerate(offsets)]
+    return meshes, objects, pr.textured_materials(6, 32), pr.gradient_environment(16, 32)
+
+
+def run_entry_grouped():
+    """3k: the grouped tile route on the six-material scene at 128 x 128 with
+    explicit groups and caps from autotune_tex_group_caps: the frame is
+    bit-equal to the same buffers' ungrouped tile frame, K9 launches once a
+    group and once for the fallback, and a starved fallback cap makes
+    check_stats raise. Returns the grouped frame's recorded calls."""
+    import dataclasses
+
+    import torch
+
+    from arctic_tpu_torch.core.config import RenderConfig
+    from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
+    from arctic_tpu_torch.io.build import build_buffers
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+    from arctic_tpu_torch.utils.errors import RenderError
+
+    label = "grouped entry"
+    n = GROUPED_SIZE
+    bufs = build_buffers(*grouped_scene(), tri_bucket=512, device="cuda", tile_threshold_texels=0,
+                         tex_group_budget=GROUPED_BUDGET, tex_groups=GROUPED_EXPLICIT)
+    groups = bufs.atlas.tile_groups
+    params = default_scene_params(aspect=1.0)
+    params.camera = make_camera([0.0, 4.0, 7.0], [-25.0, -90.0], 1.0)
+    settings = default_settings()
+    config = RenderConfig(width=n, height=n, shadow_size=n)
+    plain, _ = pipeline.render_frame_stats(bufs, params, settings, config)
+    tuned = pipeline.autotune_tex_group_caps(bufs, params, config, margin=TEX_GROUP_MARGIN)
+    kernels.reset_launch_counts()
+    with kernels.record_calls() as calls:
+        img, stats = pipeline.render_frame_stats(bufs, params, settings, tuned)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    pipeline.check_stats(stats)
+    log(f"{label}: {len(groups)} groups {bufs.atlas.tile_group_of} (material -> group), caps "
+        f"{tuned.tex_group_caps}, tex_fb_rows {int(stats['tex_fb_rows'])}, launches {counts}")
+    if counts["tile_tap_resolve"] != len(groups) + 1:
+        raise RuntimeError(f"{label}: K9 launched {counts['tile_tap_resolve']} times for "
+                           f"{len(groups)} groups")
+    if not torch.equal(img, plain):
+        raise RuntimeError(f"{label} frame differs from the ungrouped tile frame")
+    starved = dataclasses.replace(config, tex_group_caps=tuple([32] * (len(groups) + 1)))
+    _, sstats = pipeline.render_frame_stats(bufs, params, settings, starved)
+    try:
+        pipeline.check_stats(sstats)
+    except RenderError as e:
+        log(f"{label}: a starved fallback cap raises: {e}")
+    else:
+        raise RuntimeError(f"{label}: tex_fb_rows {int(sstats['tex_fb_rows'])} over cap 32 "
+                           f"passed check_stats")
+    log(f"{label} frame: bit-equal to the ungrouped tile frame")
+    return calls
+
+
+RT_ENTRY_CASES = (("primary and sun rays", dict()),
+                  ("light shadows", dict(rt_light_shadows=True)),
+                  ("light shadows and the spotlight", dict(rt_light_shadows=True, spotlights=True)))
+
+
+def run_entry_rt():
+    """3l: the ray-traced entry frame with the point light and the
+    spotlight (POINT, SPOT): primary and sun rays, then with
+    rt_light_shadows, then with the spotlight's cone too. Each launches K14
+    two times plus once a light under rt_light_shadows, and no other
+    kernel, and is within 1 LSB of the port's CPU ray-traced frame on < 1%
+    of the values. Returns the recorded K14 calls."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.models import raytrace
+    from arctic_tpu_torch.utils import kernels
+
+    config, _, bufs, _, _ = entry_scene("cuda")
+    cpu_bufs = entry_scene("cpu")[2]
+    params, settings = entry_params([POINT, SPOT])
+    t = time.perf_counter()
+    bvh = raytrace.build_scene_bvh(bufs)
+    log(f"ray-traced entry BVH: {bvh.num_nodes} nodes, {bvh.nbytes} B, built in "
+        f"{time.perf_counter() - t:.3f} s")
+    cpu_bvh = raytrace.build_scene_bvh(cpu_bufs)
+    all_calls = {}
+    for name, fields in RT_ENTRY_CASES:
+        label = f"ray-traced entry ({name})"
+        cfg = dataclasses.replace(config, **fields)
+        kernels.reset_launch_counts()
+        with kernels.record_calls() as calls:
+            img = raytrace.make_rt_renderer(cfg, bvh, "cuda")(bufs, params, settings)
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = 2 + (params.point_lights.count if cfg.rt_light_shadows else 0)
+        log(f"{label} launches: {counts}")
+        check_launches(counts, RT_PATH, label, absent=tuple(k for k in counts if k != "bvh_trace"))
+        if counts["bvh_trace"] != want:
+            raise RuntimeError(f"{label}: K14 launched {counts['bvh_trace']} times, not {want}")
+        img = img.cpu().numpy()
+        ref = raytrace.make_rt_renderer(cfg, cpu_bvh, "cpu")(cpu_bufs, params, settings)
+        lsb_gate(img, ref.numpy(), label, "the port's CPU ray-traced frame")
+        if img.mean() < 5.0:
+            raise RuntimeError(f"{label} frame is black")
+        np.save(os.path.join(OUT_DIR, f"chip_smoke_entry_rt_{len(all_calls.get('bvh_trace', []))}.npy"),
+                img)
+        all_calls.setdefault("bvh_trace", []).extend(calls["bvh_trace"])
+    return all_calls
+
+
+def run_real_grouped(device, tex_config, tex_imgs, tex_median, profile: bool = False):
+    """4j: the grouped tile route on 4d's textured scene: plan_tex_groups over
+    bench.py's 20 viewpoints, the scene rebuilt with the plan, caps from
+    autotune_tex_group_caps(margin=TEX_GROUP_MARGIN), the fly-through (K9
+    once a group and once for the fallback each frame), each frame
+    bit-equal to 4d's at the same viewpoint. Returns (summary, recorded
+    calls of the warm-up frame)."""
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.io.build import build_buffers
+    from arctic_tpu_torch.io.procedural import sponza_like_scene
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    label = "grouped real-size"
+    scene = sponza_like_scene(texture_size=1024, n_materials=24)
+    bufs = build_buffers(*scene, device=device)
+    path = [real_params(i)[0] for i in range(BENCH_FRAMES)]
+    t = time.perf_counter()
+    plan = pipeline.plan_tex_groups(bufs, path, tex_config)
+    plan_s = time.perf_counter() - t
+    log(f"{label}: the build's {len(bufs.atlas.tile_groups)} greedy groups; plan over "
+        f"{BENCH_FRAMES} viewpoints in {plan_s:.2f} s: {plan}")
+    del bufs
+    t = time.perf_counter()
+    gbufs = build_buffers(*scene, device=device, tex_groups=plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    groups = gbufs.atlas.tile_groups
+    t = time.perf_counter()
+    config = pipeline.autotune_tex_group_caps(gbufs, path, tex_config, margin=TEX_GROUP_MARGIN)
+    tune_ms = (time.perf_counter() - t) * 1e3
+    log(f"{label}: G = {len(groups)} groups, rebuilt in {build_s:.2f} s, group tables "
+        f"views of the tile atlas ({gbufs.atlas.tiles.numel() * 4} B), caps "
+        f"{config.tex_group_caps} (autotune {tune_ms:.1f} ms; sum {sum(config.tex_group_caps)} "
+        f"of {config.num_tiles * 32} rows)")
+    render = pipeline.make_renderer_stats(config, device)
+    with kernels.record_calls() as calls:  # warm-up frame; its K9 calls feed phase 5
+        img, stats = render(gbufs, *real_params(0))
+        torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+    frames = [real_params(i) for i in range(FLY_FRAMES)]
+    times, all_stats, imgs, counts, mem = fly_through(
+        render, gbufs, frames, TEX_PATH, label, absent=("tap_resolve", "transpose_pack_rows"))
+    if counts["tile_tap_resolve"] != (len(groups) + 1) * len(frames):
+        raise RuntimeError(f"{label}: K9 launched {counts['tile_tap_resolve']} times in "
+                           f"{len(frames)} frames of {len(groups)} groups")
+    if profile:
+        profile_frames(render, gbufs, frames[:2], "grouped")
+    fb = [int(st["tex_fb_rows"]) for st in all_stats]
+    for i, (im, ref) in enumerate(zip(imgs, tex_imgs)):
+        if not np.array_equal(im, ref):
+            raise RuntimeError(f"{label} frame {i} differs from the textured frame at its viewpoint")
+    summary = dict(ms_per_frame_median=statistics.median(times), ms_per_frame=times,
+                   groups=len(groups), caps=config.tex_group_caps, tex_fb_rows=fb,
+                   build_s=build_s, plan_s=plan_s,
+                   max_memory_allocated=mem[0])
+    log(f"{label} frames: bit-equal to the textured frames; median "
+        f"{summary['ms_per_frame_median']:.3f} ms/frame (all {['%.3f' % t for t in times]}; the "
+        f"textured path's {tex_median:.3f}), tex_fb_rows {fb} of cap {config.tex_group_caps[-1]}, "
+        f"{_mem(mem)}")
+    return summary, calls
+
+
+def run_real_rt(device, bufs, config, profile: bool = False):
+    """4k: the ray-traced mode on phase 4's loaded scene: the BVH's build
+    seconds, nodes and bytes, the fly-through (K14 twice a frame, no other
+    kernel), one frame with rt_light_shadows and the 4 lights (K14 six
+    times); on frame 0 the primary hit's triangle equals the raster ibuf's
+    (the camera pass with ``config``'s caps, slots taken modulo the
+    triangle capacity) on >= RT_AGREE_SHARE of the pixels both cover
+    whose hit faces the camera, and on >= RT_CORE_AGREE_SHARE of those off
+    the raster's triangle edges.
+    Returns (summary, recorded K14 calls of frame 0 and of the light-shadow
+    frame, K14's work counted by the plain version on every K14_SAMPLE-th
+    ray of frame 0's calls)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.models import raytrace
+    from arctic_tpu_torch.ops import rt
+    from arctic_tpu_torch.utils import kernels
+
+    label = "ray-traced real-size"
+    t = time.perf_counter()
+    bvh = raytrace.build_scene_bvh(bufs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    log(f"{label} BVH: {bufs.geometry.num_tris} triangles, {bvh.num_nodes} nodes, {bvh.nbytes} B, "
+        f"built in {build_s:.2f} s on the host")
+    rt_render = raytrace.make_rt_renderer(config, bvh, device)
+
+    def render(b, p, s):
+        return rt_render(b, p, s), None
+
+    with kernels.record_calls() as calls:  # warm-up frame 0; its calls feed phase 5
+        img0 = rt_render(bufs, *real_params(0))
+        torch.cuda.synchronize()
+    frames = [real_params(i) for i in range(FLY_FRAMES)]
+    absent = tuple(k for k in kernels.launch_counts() if k not in RT_PATH)
+    times, _, imgs, counts, mem = fly_through(render, bufs, frames, RT_PATH, label, absent=absent)
+    if counts["bvh_trace"] != 2 * len(frames):
+        raise RuntimeError(f"K14 launched {counts['bvh_trace']} times in {len(frames)} frames")
+    if any(im.mean() < 5.0 for im in imgs):
+        raise RuntimeError(f"a {label} frame is black")
+    if profile:
+        profile_frames(rt_render, bufs, frames[:2], "raytraced")
+    np.save(os.path.join(OUT_DIR, "chip_smoke_real_rt.npy"), imgs[0])
+
+    agree, agree_core, mismatch = rt_visibility(label, bufs, bvh, config, frames[0][0],
+                                                REAL["height"], REAL["width"], device)
+
+    lconfig = dataclasses.replace(config, rt_light_shadows=True)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with kernels.record_calls() as lcalls:
+        limg = raytrace.make_rt_renderer(lconfig, bvh, device)(bufs, *real_params(0))
+        torch.cuda.synchronize()
+    light_ms = (time.perf_counter() - t) * 1e3
+    lcount = kernels.launch_counts()["bvh_trace"]
+    want = 2 + len(REAL_LIGHTS)
+    log(f"{label} frame 0 with rt_light_shadows ({len(REAL_LIGHTS)} lights): {light_ms:.3f} ms, "
+        f"K14 launched {lcount} times")
+    if lcount != want:
+        raise RuntimeError(f"{label}: K14 launched {lcount} times with light shadows, not {want}")
+    d = (img0.to(torch.int32) - limg.to(torch.int32)).amax(dim=2)
+    log(f"{label}: the light shadows darken {float((d > 0).double().mean()):.4%} of frame 0's "
+        f"pixels, by up to {int(d.max())} LSB; {int((d < 0).sum())} pixels brighten")
+
+    # K14's work on frame 0's calls, counted by the plain version on every
+    # K14_SAMPLE-th ray.
+    work_stats = []
+    for args, kw in calls["bvh_trace"]:
+        st = {}
+        rt.trace_plain(*sample_rays(args, kw)[0], stats=st)
+        work_stats.append((args[1].shape[0], st))
+    log(f"{label}: plain version's work on every {K14_SAMPLE}th ray of frame 0's K14 calls: "
+        f"{[st for _, st in work_stats]}")
+    summary = dict(ms_per_frame_median=statistics.median(times), ms_per_frame=times,
+                   bvh_build_s=build_s, bvh_nodes=bvh.num_nodes, bvh_bytes=bvh.nbytes,
+                   agree=agree, agree_off_edges=agree_core, coverage_mismatch=mismatch,
+                   light_shadow_ms=light_ms,
+                   max_memory_allocated=mem[0])
+    log(f"{label} frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
+        f"(all {['%.3f' % t for t in times]}), {_mem(mem)}")
+    summary["launches"] = counts["bvh_trace"]
+    return summary, calls, lcalls, work_stats
+
+
+def rt_visibility(label, bufs, bvh, config, params, h, w, device):
+    """One frame's primary hits against the raster's visibility: the
+    camera pass with ``config``'s caps, its slots taken modulo the triangle
+    capacity. The raster culls back faces (forward_pass.cpp) and the rays
+    do not, so the gates count the pixels both cover whose first hit faces
+    the camera: they agree on >= RT_AGREE_SHARE of them. The raster snaps
+    vertices to 1/16 px, which moves a triangle's edge by up to 1/32 px: a
+    pixel on an edge of the raster's triangles (a 4-neighbour's ibuf
+    triangle differs) may see the triangle across it, a pixel off every
+    edge must agree on >= RT_CORE_AGREE_SHARE of them. Returns (agreement,
+    agreement off the edges, coverage mismatch share)."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline, raytrace
+    from arctic_tpu_torch.ops import raster_tiles, rt
+
+    origins, dirs = raytrace.primary_rays(params.camera, h, w, device)
+    rays = dirs.reshape(3, -1).T.contiguous()
+    hits = rt.trace(bvh, origins, rays)
+    tri = hits.tri
+    geom = bufs.geometry
+    world = pipeline.world_triangles(geom)
+
+    def facing(t):  # (normal of triangle t) . ray
+        c = world[torch.clamp(t, min=0).long()]
+        return c, (torch.linalg.cross(c[:, 1] - c[:, 0], c[:, 2] - c[:, 0]) * rays).sum(dim=1)
+
+    back = (facing(tri)[1] > 0) & (tri >= 0)
+    tri_valid = torch.arange(geom.capacity, device=device) < geom.num_tris
+    setup = pipeline.camera_setup(pipeline.world_corners(geom), tri_valid,
+                                  params.camera.proj_view(), config)
+    _, ibuf, _ = raster_tiles.bin_and_rasterize(setup, config, config.tiles_x, config.tiles_y,
+                                                config.tile_h, config.tile_w)
+    ibuf = ibuf[:h, :w].reshape(-1)
+    ibuf = torch.where(ibuf >= 0, ibuf % geom.capacity, -1)
+
+    def edges(t):  # pixels whose triangle differs from a 4-neighbour's
+        t = t.view(h, w)
+        e = torch.zeros_like(t, dtype=torch.bool)
+        dx, dy = t[:, 1:] != t[:, :-1], t[1:] != t[:-1]
+        e[:, 1:] |= dx
+        e[:, :-1] |= dx
+        e[1:] |= dy
+        e[:-1] |= dy
+        return e.reshape(-1)
+
+    both = (tri >= 0) & (ibuf >= 0)
+    same = tri == ibuf
+    front = both & ~back
+    edge = edges(ibuf)
+    core = front & ~edge
+    wrong = front & ~same
+    agree = float((same & front).sum() / front.sum())
+    agree_core = float((same & core).sum() / core.sum())
+    agree_all = float((same & both).sum() / both.sum())
+    mismatch = ((tri >= 0) != (ibuf >= 0))
+    log(f"{label} frame 0: the primary hit's triangle is the raster ibuf's on {agree:.4%} of the "
+        f"{int(front.sum())} pixels both cover where the hit faces the camera (gate >= "
+        f"{RT_AGREE_SHARE:.0%}); {float((wrong & edge).sum() / wrong.sum().clamp(min=1)):.4%} "
+        f"of the {int(wrong.sum())} that differ are on an edge of the raster's triangles; off "
+        f"every edge ({int(core.sum())} pixels) they agree on {agree_core:.4%} (gate >= "
+        f"{RT_CORE_AGREE_SHARE:.1%}); on {agree_all:.4%} of all {int(both.sum())} pixels both "
+        f"cover, {float((back & both).double().mean()):.4%} of the pixels showing a back face to "
+        f"the rays; coverage differs on {float(mismatch.double().mean()):.4%} of the pixels, "
+        f"{float((mismatch & back).sum() / mismatch.sum().clamp(min=1)):.4%} of them back-face hits")
+    odd = wrong & core
+    if bool(odd.any()):
+        # Off-edge disagreements: how far the raster triangle's plane lies
+        # from the ray's hit along the ray, whether the ray's own triangles
+        # change there, and whether the raster's triangle faces the ray.
+        c, fr = facing(ibuf)
+        t_r = (torch.linalg.cross(c[:, 1] - c[:, 0], c[:, 2] - c[:, 0])
+               * (c[:, 0] - origins)).sum(dim=1) / fr
+        gap = ((t_r - hits.t).abs() / hits.t)[odd]
+        log(f"{label} frame 0: the {int(odd.sum())} off-edge disagreements: relative depth gap "
+            f"to the raster triangle's plane < 1e-4 on {float((gap < 1e-4).double().mean()):.4%}, "
+            f"< 1e-3 on {float((gap < 1e-3).double().mean()):.4%}, < 1e-2 on "
+            f"{float((gap < 1e-2).double().mean()):.4%} (median {float(gap.median()):.3e}); "
+            f"on an edge of the rays' triangles {float(edges(tri)[odd].double().mean()):.4%}; "
+            f"the raster's triangle faces away from the ray on "
+            f"{float((fr[odd] > 0).double().mean()):.4%}")
+    if agree < RT_AGREE_SHARE or agree_core < RT_CORE_AGREE_SHARE:
+        raise RuntimeError(f"{label}: primary hits agree with the raster on {agree:.4%} < "
+                           f"{RT_AGREE_SHARE:.0%} or, off the raster's edges, on "
+                           f"{agree_core:.4%} < {RT_CORE_AGREE_SHARE:.1%}")
+    return agree, agree_core, float(mismatch.double().mean())
+
+
+def sample_rays(args, kw):
+    """One K14 call's (args, kwargs) on every K14_SAMPLE-th ray, as
+    positional (bvh, origin, direction, t_max, any_hit)."""
+    import torch
+
+    full = dict(zip(("bvh", "origin", "direction", "t_max", "any_hit"), args), **kw)
+    t_max = full.get("t_max", 3.0e38)
+    if isinstance(t_max, torch.Tensor) and t_max.dim() > 0:
+        t_max = t_max[::K14_SAMPLE].contiguous()
+    return (full["bvh"], full["origin"][::K14_SAMPLE].contiguous(),
+            full["direction"][::K14_SAMPLE].contiguous(), t_max, full.get("any_hit", False)), {}
+
+
+def run_real_per_slot(device, profile: bool = False):
+    """4l: the per-slot atlas at real size: the bench geometry with 24
+    materials whose normal maps are half their diffuse maps' size, its own
+    tuned caps, the fly-through (K1, K3 and K4; no K6, no K9), frame 0
+    within 1 LSB of the deferred frame on >= DEFERRED_NEAR_SHARE of the
+    pixels. Returns the summary."""
+    import numpy as np
+    import torch
+
+    from arctic_tpu_torch.io.build import build_buffers
+    from arctic_tpu_torch.io.procedural import per_slot_materials, sponza_like_scene
+    from arctic_tpu_torch.models import pipeline
+
+    label = "per-slot real-size"
+    t0 = time.perf_counter()
+    meshes, objects, materials, env = sponza_like_scene(texture_size=PER_SLOT_TEXTURE,
+                                                        n_materials=24)
+    materials = per_slot_materials(materials)
+    t1 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    bufs = build_buffers(meshes, objects, materials, env, device=device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    a = bufs.atlas
+    if a.quads is None:
+        raise RuntimeError(f"{label}: the scene did not take the per-slot atlas")
+    log(f"{label} scene: {len(materials)} materials ({PER_SLOT_TEXTURE}^2 diffuse, "
+        f"{materials[0].normal.shape[0]}^2 normal maps), generated in {t1 - t0:.1f} s, built in "
+        f"{t2 - t1:.1f} s; per-slot quads {tuple(a.quads.shape)} {a.quads.dtype}, "
+        f"{a.quads.numel() * a.quads.element_size()} B; {torch.cuda.memory_allocated() - before} "
+        f"B on the card")
+    config = tune_caps(bufs, label)
+    render = pipeline.make_renderer_stats(config, device)
+    img, stats = render(bufs, *real_params(0))  # warm-up
+    torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+    frames = [real_params(i) for i in range(FLY_FRAMES)]
+    times, all_stats, imgs, counts, mem = fly_through(
+        render, bufs, frames, PER_SLOT_PATH, label,
+        absent=("tap_resolve", "tile_tap_resolve", "transpose_pack_rows", "bvh_trace"))
+    if profile:
+        profile_frames(render, bufs, frames[:2], "per_slot")
+    deferred = pipeline.make_renderer_stats(tune_caps(bufs, f"{label} deferred",
+                                                      fused_shade=False), device)
+    ref, dstats = deferred(bufs, *frames[0])
+    pipeline.check_stats(dstats)
+    d = np.abs(imgs[0].astype(np.int32) - ref.cpu().numpy().astype(np.int32)).max(axis=2)
+    share = float((d <= 1).mean())
+    log(f"{label} frame 0 vs its deferred frame: {share:.4%} of pixels within 1 LSB, max "
+        f"{d.max()} LSB")
+    if share < DEFERRED_NEAR_SHARE:
+        raise RuntimeError(f"{label} frame 0 is within 1 LSB of its deferred frame on < "
+                           f"{DEFERRED_NEAR_SHARE:.0%} of the pixels")
+    if any(im.mean() < 5.0 for im in imgs):
+        raise RuntimeError(f"a {label} frame is black")
+    np.save(os.path.join(OUT_DIR, "chip_smoke_real_per_slot.npy"), imgs[-1])
+    summary = dict(ms_per_frame_median=statistics.median(times), ms_per_frame=times,
+                   max_memory_allocated=mem[0], share=share,
+                   stats={k: int(v) for k, v in all_stats[-1].items()})
+    log(f"{label} frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
+        f"(all {['%.3f' % t for t in times]}), {_mem(mem)}, stats {summary['stats']}")
+    return summary
+
+
+def once_ms(fn) -> float:
+    """CUDA-event ms of one call of ``fn`` (no warm-up: for the lockstep plain
+    K14, whose runs take seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def k14_timing(real_calls, work_stats) -> dict:
+    """K14's row: CUDA-event ms per ray-traced frame (frame 0's calls: the
+    primary and the sun rays), the plain version's on the same calls (one
+    run each), and the bound of the work the plain version counted on every
+    K14_SAMPLE-th ray, scaled to all rays: the larger of (each ray's 44 B of
+    inputs and outputs plus the distinct nodes and triangles the sample
+    read: a lower bound of what all rays read) over the HBM rate and the
+    f32 operations of the node visits and triangle tests over the f32
+    rate. The timed plain run's hits hold K14's on every ray of each call
+    bit-exact."""
+    from arctic_tpu_torch.ops import rt
+
+    ms = plain_ms = t_bytes = t_ops = 0.0
+    for (args, kw), (n_rays, st) in zip(real_calls["bvh_trace"], work_stats):
+        ms += cuda_ms(lambda: rt.trace(*args, **kw), 10)
+        plain = []
+        plain_ms += once_ms(lambda: plain.append(rt.trace_plain(*args, **kw)))
+        for a, b in zip(_tensors(rt.trace(*args, **kw)), _tensors(plain[0])):
+            if max_abs_diff(a, b) != 0.0:
+                raise RuntimeError(f"real size: bvh_trace differs from its plain version on "
+                                   f"{n_rays} rays (max {max_abs_diff(a, b)})")
+        nbytes = rt.RAY_BYTES * n_rays + rt.NODE_BYTES * st["nodes"] + rt.TRI_BYTES * st["tris"]
+        ops = K14_SAMPLE * (rt.NODE_OPS * st["node_visits"] + rt.TRI_OPS * st["tri_tests"])
+        t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops += ops / F32_OPS_PER_S * 1e3
+    out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"K14 per ray-traced frame (primary + sun rays, real size): bit-exact vs plain on every "
+        f"ray; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}; bytes "
+        f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms, counted on every {K14_SAMPLE}th ray and "
+        f"scaled), share {out['bound_ms'] / ms:.2%}")
+    return out
+
+
+def k14_synthetic_calls(device) -> dict:
+    """K14 on utils/synthetic.py's rays, closest and any hit."""
+    from arctic_tpu_torch.utils import synthetic
+
+    calls = [synthetic.k14_inputs(device, case, any_hit)
+             for case in synthetic.K14_CASES for any_hit in (False, True)]
+    log(f"synthetic inputs: K14 cases {', '.join(synthetic.K14_CASES)} (closest and any hit)")
+    return {"bvh_trace": calls}
 
 
 RANGES = ("shadow_pass", "forward_visibility", "forward_shade_skybox", "pcf_shadow",
@@ -1340,6 +1952,10 @@ def profile_frames(render, bufs, frames, path: str, *extra) -> None:
 
 
 def _tensors(out):
+    import dataclasses
+
+    if dataclasses.is_dataclass(out):  # K14's Hits
+        out = tuple(getattr(out, f.name) for f in dataclasses.fields(out))
     return [t for t in (out if isinstance(out, tuple) else (out,)) if t is not None]
 
 
@@ -1713,9 +2329,10 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; the port needs a CUDA device")
     # Imported after the device check: outside the repo these imports fail.
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.models import pipeline, raytrace  # noqa: F401 (registers K14)
     from arctic_tpu_torch.utils import kernels
 
+    t_start = time.perf_counter()
     pipeline.use_full_f32()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1748,7 +2365,7 @@ def main() -> int:
     summary, real_calls, counts, real_imgs = run_real(dev, bufs, base, profile)
     qsummary, qreal_calls, qcounts, uncached, qconfig = run_real_quant(dev, bufs, base, profile)
     csummary = run_cached(dev, bufs, qconfig, uncached, profile)
-    tsummary, treal_calls, tcounts = run_textured(dev, profile)
+    tsummary, treal_calls, tcounts, tconfig, tex_imgs = run_textured(dev, profile)
     fsummary, freal_calls, fcounts = run_full_stack(dev, bufs, base, real_imgs, profile)
     lut_calls, lcounts = run_f32_table_pcf(dev, bufs, base)
     # After the real-size paths, so that each of them sees the caching
@@ -1763,19 +2380,46 @@ def main() -> int:
     dsummary, dconfig = run_real_deferred(dev, bufs, real_imgs, profile)
     del real_imgs
     osummary = run_real_optins(dev, bufs, base, dconfig, profile)
+    # This slice's phases after every earlier one, so that each earlier
+    # path keeps its allocator history: the per-slot, unmerged, grouped
+    # and ray-traced entry frames (3i-3l), then 4j-4l.
+    from arctic_tpu_torch.io.procedural import cornell_like_scene, per_slot_materials
+
+    meshes, objects, materials, env = cornell_like_scene()
+    slot_calls = run_entry_route("per-slot entry", "per_slot",
+                                 (meshes, objects, per_slot_materials(materials), env))
+    unmerged_calls = run_entry_route("unmerged entry", "unmerged", cornell_like_scene(),
+                                     atlas_dtype=torch.float32)
+    grouped_calls = run_entry_grouped()
+    rt_entry_calls = run_entry_rt()
+    gsummary, greal_calls = run_real_grouped(dev, tconfig, tex_imgs, tsummary["ms_per_frame_median"],
+                                             profile)
+    del tex_imgs
+    rsummary, rreal_calls, rlight_calls, rwork = run_real_rt(dev, bufs, base, profile)
+    psummary = run_real_per_slot(dev, profile)
     log(f"real-size ms/frame medians (one call, one card): default "
         f"{summary['ms_per_frame_median']:.3f}, full-stack {fsummary['ms_per_frame_median']:.3f}, "
         f"quant {qsummary['ms_per_frame_median']:.3f}, "
         f"cached sun {csummary['ms_per_frame_median']:.3f}, "
         f"textured {tsummary['ms_per_frame_median']:.3f}, "
         f"deferred {dsummary['ms_per_frame_median']:.3f}, "
-        f"opt-ins {osummary['ms_per_frame_median']:.3f}")
+        f"opt-ins {osummary['ms_per_frame_median']:.3f}, "
+        f"grouped {gsummary['ms_per_frame_median']:.3f}, "
+        f"ray-traced {rsummary['ms_per_frame_median']:.3f}, "
+        f"per-slot {psummary['ms_per_frame_median']:.3f}")
     own = ("window_lut_q", "pcf_eval")
     entry_cmps = [
         compare_kernels(entry_calls, "entry", DEFAULT_PATH),
         compare_kernels(qentry_calls, "quant entry", QUANT_PATH),
         compare_kernels(tentry_calls, "textured entry", TEX_PATH),
         compare_kernels(fentry_calls, "full-stack entry", FULL_PATH),
+        compare_kernels(slot_calls, "per-slot entry", PER_SLOT_PATH),
+        compare_kernels(unmerged_calls, "unmerged entry", PER_SLOT_PATH),
+        compare_kernels(grouped_calls, "grouped entry", TEX_PATH),
+        compare_kernels(rt_entry_calls, "ray-traced entry", RT_PATH),
+        compare_kernels(greal_calls, "grouped real-size", ("tile_tap_resolve",)),
+        compare_kernels({"bvh_trace": rlight_calls["bvh_trace"][2:]},
+                        "ray-traced real-size light rays (every ray)", RT_PATH),
     ]
     quant = compare_kernels(qreal_calls, "quant real-size", QUANT_PATH, timed=own)
     tex = compare_kernels(treal_calls, "textured real-size", TEX_PATH, timed=("tile_tap_resolve",))
@@ -1795,9 +2439,11 @@ def main() -> int:
                           ("pack_shade_rows_tm",), timed=("pack_shade_rows_tm",)),
         **compare_kernels(k13_calls(qreal_calls), "K13 on K8's penumbra rows", ("pcf_resolve",),
                           timed=("pcf_resolve",)),
+        "bvh_trace": k14_timing(rreal_calls, rwork),
     }
     synth = compare_kernels(synthetic_calls(dev), "synthetic",
                             ("raster_tiles", "pack_shade_rows", "tap_resolve", "pcf_eval"))
+    synth.update(compare_kernels(k14_synthetic_calls(dev), "synthetic", RT_PATH))
     (_, k6_kw), = real_calls["tap_resolve"]
     (k8_args, _), = qreal_calls["pcf_eval"]
     log(f"real size: K6 quad width c4 = {k6_kw['c4']}; K8 {int(k8_args[2][0])} live of "
@@ -1808,7 +2454,8 @@ def main() -> int:
     launches = {**counts, **{k: qcounts[k] for k in own},
                 "tile_tap_resolve": tcounts["tile_tap_resolve"],
                 "transpose_pack_rows": fcounts["transpose_pack_rows"],
-                "window_lut": lcounts["window_lut"], **{k: 0 for k in NO_FRAME}}
+                "window_lut": lcounts["window_lut"], "bvh_trace": rsummary["launches"],
+                **{k: 0 for k in NO_FRAME}}
     log(f"K11 pack_shade_rows_tm and K13 pcf_resolve: 0 frame launches (no frame calls them, "
         f"as in the JAX package); their rows in the kernels line come from their checks")
 
@@ -1824,10 +2471,12 @@ def main() -> int:
         rows.append(dict(
             name=name, route=fn.route, source=fn.source, replaces=fn.replaces,
             launches=launches[name],
-            max_abs_err=max(c[name]["max_abs_err"] for c in cmps if name in c),
+            max_abs_err=max(c[name]["max_abs_err"] for c in cmps
+                            if name in c and "max_abs_err" in c[name]),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=library.get(name),
         ))
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -138,7 +138,7 @@ def test_cli_config_shadow_tile_and_ignored_fields(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--raytrace"], ["--devices", "2"], ["--debug-checks"],
+    ["--devices", "2"], ["--debug-checks"],
 ], ids=lambda a: a[0])
 def test_cli_unported_flags_raise_before_loading(tmp_path, argv):
     """Each flag of a path the port lacks raises RenderError naming its
@@ -192,7 +192,8 @@ def test_config_unported_fields_raise(field):
 
 
 @pytest.mark.parametrize(
-    "field", ["force_bruteforce", "fused_shade", "ibl_specular", "spotlights", "debug_overflow"]
+    "field", ["force_bruteforce", "fused_shade", "ibl_specular", "spotlights", "debug_overflow",
+              "rt_light_shadows"]
 )
 def test_config_ported_fields(field):
     """Each field ported with the deferred frame and the opt-ins reaches
@@ -206,6 +207,18 @@ def test_config_ported_fields(field):
     assert getattr(config_from_dict({field: not default}), field) is (not default)
     tc = convert.render_config(JRenderConfig(**{field: not default}))
     assert tc == dataclasses.replace(RenderConfig(), **{field: not default})
+
+
+def test_config_tex_group_caps():
+    """tex_group_caps reaches RenderConfig as a tuple of ints, from a JSON
+    list (the CLI's --config) and through convert.render_config."""
+    from arctic_tpu.core.config import RenderConfig as JRenderConfig
+    from arctic_tpu_torch.utils import convert
+
+    assert RenderConfig().tex_group_caps is None is JRenderConfig().tex_group_caps
+    assert config_from_dict({"tex_group_caps": [64, 32, 96]}).tex_group_caps == (64, 32, 96)
+    tc = convert.render_config(JRenderConfig(tex_group_caps=(64, 32, 96)))
+    assert tc == dataclasses.replace(RenderConfig(), tex_group_caps=(64, 32, 96))
 
 
 def test_config_tiles_and_unknown_fields():

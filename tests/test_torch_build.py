@@ -167,9 +167,12 @@ def test_convert_render_config():
     # lut_y_skip changes no pixel (only table rows no window reads): accepted.
     tc = convert.render_config(JRenderConfig(pcf_row_cap=4096, lut_y_skip=False))
     assert tc.pcf_row_cap == 4096 and not hasattr(tc, "lut_y_skip")
-    for off in (dict(tex_group_caps=(32, 32)), dict(rt_light_shadows=True), dict(sun_frustum_cull=False)):
+    for off in (dict(hdr_half_round=False), dict(sun_frustum_cull=False)):
         with pytest.raises(RenderError, match=next(iter(off))):
             convert.render_config(JRenderConfig(**off))
+    # The grouped tile route's caps and the ray-traced light shadows carry over.
+    tc = convert.render_config(JRenderConfig(tex_group_caps=(64, 32, 96), rt_light_shadows=True))
+    assert tc.tex_group_caps == (64, 32, 96) and tc.rt_light_shadows
 
 
 def test_entry_points_default_to_the_card():

@@ -170,7 +170,7 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=REPO
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 36
+    assert int(out.stdout.strip()) >= 40  # io/native, io/texplan, ops/rt, models/raytrace among them
 
 
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):

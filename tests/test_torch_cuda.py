@@ -1,6 +1,7 @@
-"""arctic_tpu_torch on the card: the eleven CUDA kernels against their
-plain torch versions (K1, K3, K6 and K8 also on the synthetic inputs of
-utils/synthetic.py), and the entry frame, on the default path, on the
+"""arctic_tpu_torch on the card: the twelve CUDA kernels against their
+plain torch versions (K1, K3, K6, K8 and K14 also on the synthetic inputs
+of utils/synthetic.py), the ray-traced entry frame and the grouped tile
+route (K9 once a group and once for the fallback), and the entry frame, on the default path, on the
 quantised PCF path (pcf_row_cap), on the textured path (the tile atlas,
 forced with tile_threshold_texels=0) and on the full-stack shade-row route
 (a Geometry without slot_static_rows: K10 in place of K3), against the CPU
@@ -452,3 +453,84 @@ def test_new_wrappers_raise_on_bad_cuda_input(cuda):
         shadow.pcf_resolve(lut.to(torch.int32), sy, sx)
     with pytest.raises(ValueError, match="shape"):
         shadow.pcf_resolve(lut, sy, sx[:100])
+
+
+def _hits_same(a, b):
+    return all(_same(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", synthetic.K14_CASES)
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_k14_equals_plain_on_synthetic_inputs(cuda, case, any_hit):
+    """K14 bvh_trace on utils/synthetic.py's rays, bit-exact against the
+    lockstep plain version on the card and on the CPU."""
+    from arctic_tpu_torch.ops import rt
+
+    (bvh, o, d, t_max, _), _ = synthetic.k14_inputs(cuda, case, any_hit)
+    kernels.reset_launch_counts()
+    got = rt.trace(bvh, o, d, t_max, any_hit)
+    torch.cuda.synchronize()
+    assert rt.trace.launches == 1
+    assert _hits_same(got, rt.trace_plain(bvh, o, d, t_max, any_hit))
+    (cbvh, co, cd, ct, _), _ = synthetic.k14_inputs("cpu", case, any_hit)
+    assert _hits_same([x.cpu() for x in got], rt.trace_plain(cbvh, co, cd, ct, any_hit))
+
+
+def test_rt_entry_frame_matches_cpu(cuda):
+    """The ray-traced entry frame with rt_light_shadows: K14 twice plus once
+    a light, no other kernel, within 1 LSB of the CPU frame on < 1%."""
+    from arctic_tpu_torch.models import raytrace
+
+    config, bufs, params, settings = _entry(cuda)
+    config = dataclasses.replace(config, rt_light_shadows=True)
+    kernels.reset_launch_counts()
+    img = raytrace.make_rt_renderer(config, raytrace.build_scene_bvh(bufs), cuda)(
+        bufs, params, settings)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["bvh_trace"] == 2 + params.point_lights.count
+    assert sum(counts.values()) == counts["bvh_trace"]
+    _, cbufs, _, _ = _entry("cpu")
+    want = raytrace.make_rt_renderer(config, raytrace.build_scene_bvh(cbufs), "cpu")(
+        cbufs, params, settings)
+    d = (img.cpu().to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(d.max()) <= 1 and float((d > 0).double().mean()) < 0.01
+
+
+def test_grouped_tile_frame_launches_k9_per_group(cuda):
+    """The grouped tile route on the card: tests/test_tex_groups.py's six
+    materials at 128x128 in groups of 220 rows, caps from
+    autotune_tex_group_caps: K9 launched once per group and once for the
+    fallback, the frame bit-equal to the plain tile route's, each of its K9
+    calls bit-exact against the plain version."""
+    from arctic_tpu_torch.io import procedural
+
+    mats = procedural.textured_materials(6, 32)
+    meshes = [procedural.plane_mesh(8.0, material=0, uv_scale=2.0),
+              procedural.box_mesh(2.0, 2.0, 2.0, material=1),
+              procedural.uv_sphere(1.0, 8, 12, material=2),
+              procedural.box_mesh(1.0, 3.0, 1.0, material=3),
+              procedural.uv_sphere(0.8, 8, 12, material=4),
+              procedural.box_mesh(3.0, 1.0, 1.0, material=5)]
+    objects = [(procedural.transform(t), i) for i, t in enumerate(
+        [(0, 0, 0), (-2.0, 1.0, 0.0), (2.0, 1.0, 0.0), (0.0, 1.5, -2.0), (-1.0, 0.8, 2.0),
+         (1.5, 0.5, 2.5)])]
+    env = procedural.gradient_environment(16, 32)
+    bufs = build_buffers(meshes, objects, mats, env, tri_bucket=512, device=cuda,
+                         tile_threshold_texels=0, tex_group_budget=220 * 512,
+                         tex_groups=[[0, 5], [1, 4], [2, 3]])
+    params = default_scene_params(aspect=1.0)
+    params.camera = make_camera([0.0, 4.0, 7.0], [-25.0, -90.0], 1.0)
+    config = RenderConfig(width=128, height=128, shadow_size=128)
+    plain, _ = pipeline.render_frame_stats(bufs, params, default_settings(), config)
+    tuned = pipeline.autotune_tex_group_caps(bufs, params, config)
+    kernels.reset_launch_counts()
+    with kernels.record_calls() as calls:
+        img, stats = pipeline.render_frame_stats(bufs, params, default_settings(), tuned)
+    torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+    assert kernels.launch_counts()["tile_tap_resolve"] == len(bufs.atlas.tile_groups) + 1
+    assert torch.equal(img, plain)
+    for args, kw in calls["tile_tap_resolve"]:
+        assert _same(sampling.tile_tap_resolve(*args, **kw),
+                     sampling.tile_tap_resolve.plain(*args, **kw))

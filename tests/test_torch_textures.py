@@ -125,11 +125,13 @@ def test_tile_atlas_and_groups_match_jax(budget_rows):
     np.testing.assert_array_equal(meta, jmeta)
     env_rows = np.random.default_rng(1).standard_normal((5, 128)).astype(np.float32).view(np.int32)
     budget = build.TEX_GROUP_BUDGET_BYTES if budget_rows is None else budget_rows * 512
-    table, metas, groups = build.group_tile_atlas(tiles, meta, env_rows, budget)
-    jtable, jmetas, jgroups, _, _ = jbuild.group_tile_atlas(jtiles, jmeta, env_rows, budget)
+    table, metas, groups, group_of, mat_rows = build.group_tile_atlas(tiles, meta, env_rows, budget)
+    jtable, jmetas, jgroups, jgroup_of, jmat_rows = jbuild.group_tile_atlas(
+        jtiles, jmeta, env_rows, budget)
     np.testing.assert_array_equal(table, jtable)
     np.testing.assert_array_equal(metas, jmetas)
     assert groups == jgroups and len(groups) == (1 if budget_rows is None else 2)
+    assert group_of == jgroup_of and mat_rows == jmat_rows
 
 
 def _six_material_scene():
@@ -176,14 +178,22 @@ def test_tile_route_build_matches_jax(scene, budget_rows):
 
 
 def test_materials_that_neither_combine_nor_tile_raise():
-    """Sizes that differ inside one material rule out both atlases."""
+    """Sizes that differ inside one material rule out both the combined and
+    the tile atlas: such materials now take the per-slot atlas (they raised
+    before it was ported), as in the JAX package's build."""
     mat = procedural.MaterialImages(
         procedural.checker_texture(32), procedural.bumpy_normal_texture(16),
         procedural.mr_texture(0.0, 0.5),
     )
     meshes, objects, _, env = procedural.cornell_like_scene()
-    with pytest.raises(build.RenderError, match="take neither"):
-        build.build_buffers(meshes, objects, [mat] * 3, env, tri_bucket=256, device="cpu")
+    tb = build.build_buffers(meshes, objects, [mat] * 3, env, tri_bucket=256, device="cpu",
+                             tile_threshold_texels=0)
+    jb = jbuild.build_buffers(meshes, objects, [mat] * 3, env, tri_bucket=256,
+                              tile_threshold_texels=0)
+    assert tb.atlas.tiles is None and tb.atlas.combined_slots is None
+    assert jb.atlas.tiles is None and jb.atlas.combined_slots is None
+    np.testing.assert_array_equal(convert.to_numpy(tb.atlas.quads),
+                                  np.asarray(jb.atlas.quads).view(np.uint16))
 
 
 def test_tile_index_matches_jax():
