@@ -16,9 +16,15 @@ shade (small frames only; no pair-cap tuning, --cache-sun ignored), --ibl
 adds the opt-in IBL specular term, and each --spot appends a spotlight to
 the loaded or default lights. --raytrace renders the ray-traced mode (a
 BVH built on the host, K14 on the card; no pair-cap tuning, no stats, the
-tile atlas refused). The flags of paths the port does not have
-(--devices, --debug-checks) raise RenderError before anything is loaded or
-built.
+tile atlas refused). --devices N renders each frame as N slabs of tile
+rows on N processes (parallel/sharding.py: NCCL with rank r on cuda:r, or
+gloo with --device cpu; --cache-sun ignored): this process loads the scene
+on the CPU and starts the ranks, each rank tunes the pair caps on its own
+device and the slabs share the largest, rank 0 writes the PNGs and prints
+--stats, and the stats are maxed over the ranks. On cuda, N > 1 has not yet
+run on a machine with several cards (one card runs N = 1). --debug-checks
+turns NaN and Inf in the frame's inputs and passes into FloatingPointError
+(utils/errors.py).
 """
 
 from __future__ import annotations
@@ -32,13 +38,6 @@ import time
 log = logging.getLogger("arctic")
 
 TM_NAMES = {"reinhard": 0, "exposure": 1, "aces": 2}
-
-# Flags of the JAX package's CLI whose paths are not ported, and where
-# each path stands; any of them set (true, non-empty, non-zero) raises.
-UNPORTED_FLAGS = {
-    "devices": "ROADMAP Queue 1 item 9, sharding",
-    "debug_checks": "ROADMAP Queue 1 item 10, enable_debug_checks",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,9 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "degrees (opt-in). Repeatable.")
     r.add_argument("--raytrace", action="store_true",
                    help="ray-traced mode (BVH traversal instead of the rasterizer)")
-    # Not ported: each raises RenderError (UNPORTED_FLAGS).
-    r.add_argument("--devices", type=int, default=0, help="(not ported)")
-    r.add_argument("--debug-checks", action="store_true", help="(not ported)")
+    r.add_argument("--devices", type=int, default=0,
+                   help="shard each frame's tile rows over N processes (one per card on cuda; "
+                   "N > 1 on cuda is not yet verified on several cards)")
+    r.add_argument("--debug-checks", action="store_true",
+                   help="raise on NaN / Inf in the frame's inputs and passes (slow)")
     return p
 
 
@@ -98,15 +99,17 @@ def cmd_render(args) -> int:
     from arctic_tpu_torch.core.config import config_from_dict
     from arctic_tpu_torch.core.scene import PointLights, default_scene_params, default_settings
     from arctic_tpu_torch.io.build import build_buffers
-    from arctic_tpu_torch.io.images import load_hdr, save_png
+    from arctic_tpu_torch.io.images import load_hdr
     from arctic_tpu_torch.models import pipeline
-    from arctic_tpu_torch.utils.errors import RenderError, render_guard
-    from arctic_tpu_torch.utils.profiling import FrameStats
+    from arctic_tpu_torch.utils.errors import RenderError, enable_debug_checks
 
-    for flag, where in UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise RenderError(f"--{flag.replace('_', '-')} takes a path the port does not "
-                              f"have ({where})")
+    if args.debug_checks:
+        enable_debug_checks()
+    device = torch.device(args.device)
+    if args.devices:
+        from arctic_tpu_torch.parallel import sharding
+
+        sharding.check_world(args.devices, device)  # before anything is loaded
     spots = [[float(x) for x in spec.split(",")] for spec in args.spot]
     if any(len(v) != 11 for v in spots):
         raise RenderError("--spot wants X,Y,Z,R,G,B,AX,AY,AZ,IN,OUT")
@@ -121,7 +124,6 @@ def cmd_render(args) -> int:
     if args.ibl:
         fields["ibl_specular"] = True
     config = config_from_dict(fields)
-    device = torch.device(args.device)
 
     if args.procedural:
         from arctic_tpu_torch.io import procedural
@@ -140,9 +142,13 @@ def cmd_render(args) -> int:
         log.error("render: need a scene path or --procedural")
         return 2
 
-    buffers = build_buffers(meshes, objects, materials, env, device=device)
+    sharded = bool(args.devices) and not args.raytrace
+    # Sharded, this process holds the scene on the CPU only: each rank moves
+    # it to its own device, and no rank shares a card with this process.
+    buffers = build_buffers(meshes, objects, materials, env,
+                            device="cpu" if sharded else device)
     log.info("scene: %d tris, %d objects, device=%s", buffers.geometry.num_tris,
-             len(objects), device)
+             len(objects), buffers.device)
 
     params = default_scene_params(aspect=args.width / args.height)
     settings = default_settings()
@@ -177,12 +183,16 @@ def cmd_render(args) -> int:
             settings, exposure=torch.tensor(args.exposure, dtype=torch.float32)
         )
 
-    if not (args.raytrace or config.force_bruteforce):
-        # Size the pair buffers to the scene (binning's cost scales with the
-        # capacity, not the pairs), and shade the known light count.
-        config = pipeline.autotune_pair_caps(buffers, params, config)
+    tune = not (args.raytrace or config.force_bruteforce)
+    if tune:
+        # Shade the known light count.
         config = dataclasses.replace(config, static_point_lights=params.point_lights.count)
-        log.info("pair caps: cam=%d shadow=%d", config.pair_cap_cam, config.pair_cap_shadow)
+    if sharded:
+        sharding.launch(args.devices, render_rank, args, buffers, params, settings, config, tune,
+                        device=device)
+        return 0
+    if tune:
+        config = tune_pair_caps(buffers, params, config)
 
     render_stats = None
     if args.raytrace:
@@ -207,6 +217,58 @@ def cmd_render(args) -> int:
         render_stats = pipeline.make_renderer_stats(config, device)
     if render_stats is not None:
         render = render_stats
+    render_frames(args, render, render_stats, buffers, params, settings, config, device)
+    return 0
+
+
+def tune_pair_caps(buffers, params, config):
+    """``config`` with its pair buffers sized to the scene: binning's cost
+    scales with the capacity, not the pairs."""
+    from arctic_tpu_torch.models import pipeline
+
+    config = pipeline.autotune_pair_caps(buffers, params, config)
+    log.info("pair caps: cam=%d shadow=%d", config.pair_cap_cam, config.pair_cap_shadow)
+    return config
+
+
+def render_rank(rank: int, world: int, device, args, buffers, params, settings, config,
+                tune: bool) -> None:
+    """One rank of ``--devices``: the sharded frames of the host scene
+    buffers moved to this rank's device (with ``tune``, the pair caps tuned
+    there and maxed over the ranks, so the slabs share them); rank 0 writes
+    the PNGs, the state and the --stats line."""
+    import torch
+    import torch.distributed as dist
+
+    from arctic_tpu_torch.parallel import sharding
+    from arctic_tpu_torch.utils.errors import enable_debug_checks
+
+    if rank == 0:
+        logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+    if args.debug_checks:
+        enable_debug_checks()  # a process-wide flag: each rank sets its own
+    log.info("rank %d of %d on %s", rank, world, device)
+    buffers = buffers.to(device)
+    if tune:
+        config = tune_pair_caps(buffers, params, config)
+        caps = torch.tensor([config.pair_cap_cam, config.pair_cap_shadow], device=device)
+        dist.all_reduce(caps, op=dist.ReduceOp.MAX)
+        config = dataclasses.replace(config, pair_cap_cam=int(caps[0]),
+                                     pair_cap_shadow=int(caps[1]))
+    render_stats = sharding.make_sharded_renderer_stats(config, device=device)
+    render_frames(args, render_stats, render_stats, buffers, params, settings, config, device,
+                  write=rank == 0)
+
+
+def render_frames(args, render, render_stats, buffers, params, settings, config, device,
+                  write: bool = True) -> None:
+    """The CLI's frames: the first frame's overflow check, the timed frames,
+    and (``write``) the PNGs, the state file and the --stats line."""
+    import torch
+
+    from arctic_tpu_torch.io.images import save_png
+    from arctic_tpu_torch.utils.errors import render_guard
+    from arctic_tpu_torch.utils.profiling import FrameStats
 
     scene_desc = args.scene or f"procedural:{args.procedural}"
     guard_desc = (f"scene={scene_desc} {config.width}x{config.height} "
@@ -242,8 +304,10 @@ def cmd_render(args) -> int:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         stats.add(time.perf_counter() - t0)
-        if args.frames > 1:
+        if write and args.frames > 1:
             save_png(args.out.replace(".png", f"_{i:04d}.png"), img.cpu().numpy())
+    if not write:
+        return
     if args.frames == 1:
         save_png(args.out, img.cpu().numpy())
     log.info("wrote %s", args.out)
@@ -254,7 +318,6 @@ def cmd_render(args) -> int:
         log.info("saved state to %s", args.save_state)
     if args.stats:
         print(stats.summary())
-    return 0
 
 
 def main(argv=None) -> int:

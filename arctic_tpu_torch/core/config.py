@@ -8,8 +8,8 @@ The frame is the JAX package's fused frame by default; ``fused_shade=False``
 takes its deferred frame (a per-slot shade table gathered per pixel) and
 ``force_bruteforce`` its brute-force frame (the deferred frame over the
 all-triangles-against-all-pixels raster oracle). The sun-frustum shadow
-cull (fused frame only) and the f16 HDR round are always on, so they are
-not options here. The PCF takes the exact f32 runs path unless
+cull (fused frame only) and the f16 HDR round are on by default, as in the
+JAX package. The PCF takes the exact f32 runs path unless
 ``pcf_row_cap`` asks for the u16-quantised window table with penumbra
 classification (fused frame only). Pair buffers and the penumbra row
 buffer keep fixed capacities (the pair caps from a formula, or tuned to a
@@ -93,6 +93,17 @@ class RenderConfig:
     # Overflow is loud: stats carry tex_fb_rows vs tex_fb_cap.
     tex_group_caps: tuple | None = None
 
+    # Round the HDR target to f16 before post-processing (the reference's
+    # R16G16B16A16_FLOAT render target, renderer.cpp:128-144).
+    hdr_half_round: bool = True
+
+    # Sun-frustum shadow culling (fused frame only, ops/cull.py): the shadow
+    # pass bins and rasters only the shadow tiles that the camera frustum's
+    # intersection with the scene bounds can sample (+ the PCF margin), and
+    # the quantised window table builds only their start_y band. The frame
+    # is bit-identical either way; off, every tile is rastered.
+    sun_frustum_cull: bool = True
+
     # Ray-traced mode (models/raytrace.py): an any-hit ray toward each point
     # light, bounded at its distance, shadows it (off: the lights are
     # shadowed by the sun's ray alone, as in the raster frame).
@@ -127,8 +138,6 @@ IGNORED_FIELDS = frozenset({"raster_chunk", "select_chunk", "tiles_per_step", "l
 # Fields of the JAX package's RenderConfig whose other paths are not
 # ported: (the JAX default, which the port's frame is, and where it stands).
 UNPORTED_FIELDS = {
-    "hdr_half_round": (True, "the f16 HDR round is always on in the port"),
-    "sun_frustum_cull": (True, "the sun-frustum cull is always on in the port"),
     "shadow_tile": (SHADOW_TILE, "the port's shadow tile is 64 x 64, the only one the "
                                  "JAX package's lut_rows path takes"),
     "shadow_tile_h": (None, "the port's shadow tile is 64 x 64, the only one the "

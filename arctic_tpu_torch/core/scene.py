@@ -9,6 +9,7 @@ Scene buffers (geometry, atlases) live on the device they were built for.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -157,6 +158,11 @@ class Geometry:
     # Material id of each triangle: the grouped tile route's row
     # measurements read it (pipeline.measure_tex_row_masks).
     tri_material: torch.Tensor | None = None  # (T,) i32
+    # Each object's world TRS and each triangle's object id: tri_trs is
+    # object_trs[tri_obj] (with_object_trs edits both; the viewer's object
+    # editor).
+    object_trs: torch.Tensor | None = None  # (O, 4, 4) f32
+    tri_obj: torch.Tensor | None = None  # (T,) i32
 
     def __post_init__(self):
         # build_buffers makes the tri-major planes views of the static rows:
@@ -261,6 +267,20 @@ class SceneBuffers:
     def device(self) -> torch.device:
         return self.geometry.tri_corner_pos.device
 
+    def to(self, device) -> "SceneBuffers":
+        """The buffers on ``device`` (a copy unless they are there already;
+        views of the static rows become tensors of their own)."""
+        return SceneBuffers(_to(self.geometry, device), _to(self.atlas, device),
+                            _to(self.environment, device))
+
+
+def _to(obj, device):
+    """A dataclass of tensors with each tensor field moved to ``device``."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)
+    })
+
 
 @dataclass
 class SunCache:
@@ -277,6 +297,19 @@ class SunCache:
     shadow_map: torch.Tensor  # (S, S) f32 depth
     lutq: torch.Tensor | None  # (S + 4, pitch) u16 window table (K7)
     pyramid: torch.Tensor | None  # (M,) i32 packed min / max pyramid
+
+
+def with_object_trs(geom: Geometry, obj_id: int, trs) -> Geometry:
+    """Geometry with object ``obj_id``'s world TRS replaced (the viewer's
+    object editor; arctic_tpu/core/scene.py:381-402): object_trs[obj_id]
+    and the tri-major tri_trs (16, T) = object_trs[tri_obj].reshape(T,
+    16).T, as io/build.py gathers it. The corner positions and the static
+    attribute rows stay as they are (n / t / b are object-space,
+    forward.hlsl:54-61), so an edit is this two-array update."""
+    object_trs = geom.object_trs.clone()
+    object_trs[obj_id] = torch.as_tensor(np.asarray(trs, np.float32), device=object_trs.device)
+    tri_trs = object_trs[geom.tri_obj.long()].reshape(geom.capacity, 16).T.contiguous()
+    return dataclasses.replace(geom, object_trs=object_trs, tri_trs=tri_trs)
 
 
 def make_camera(eye, rotation, aspect, fov_y=45.0, z_near=0.1, z_far=1000.0) -> Camera:

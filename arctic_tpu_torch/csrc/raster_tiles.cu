@@ -64,6 +64,12 @@
 // a cluster of tiny triangles evaluates them one pair (two with the unroll)
 // after another, which sets the camera pass's tail.
 //
+// A slab of a sharded frame (parallel/sharding.py) starts at pixel row
+// row0 (the JAX kernel's tile_row0, raster_tiles.py:424): row0 is added as
+// an integer to the rows the arithmetic sees (the block's rectangle and
+// its pixel centres, so the values are the whole frame's), and the stores
+// keep slab-local rows. row0 = 0 is the unsharded frame.
+//
 // The per-pixel accept is raster_tiles.py:479-496's: accept iff all three
 // edges and z are >= 0 and z < zbuf. The comparisons are written out (not
 // fminf/fmaxf, which drop NaNs) so a NaN plane rejects, as jnp.minimum
@@ -131,7 +137,7 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
     const float* __restrict__ rows, int row_stride, int lane0, bool vec_rows,
     const int* __restrict__ sorted_slot, const int* __restrict__ tile_start,
     int tiles_x, int tile_h, int tile_w, int block_w_log2, int rect_w_log2, int out_w,
-    float* __restrict__ zbuf, int* __restrict__ ibuf) {
+    int row0, float* __restrict__ zbuf, int* __restrict__ ibuf) {
   __shared__ float4 s_row[kChunk][kComps / 4];
   __shared__ int s_slot[kChunk];
   __shared__ int s_count[kWarps];
@@ -143,7 +149,8 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
   const int t = blockIdx.x / per_tile;
   const int b = blockIdx.x - t * per_tile;
   const int x0 = (t % tiles_x) * tile_w + (b % blocks_x) * block_w;
-  const int y0 = (t / tiles_x) * tile_h + (b / blocks_x) * block_h;
+  // Global pixel rows: the rectangles and pixel centres see the frame's rows.
+  const int y0 = row0 + (t / tiles_x) * tile_h + (b / blocks_x) * block_h;
   const int begin = tile_start[t];
   const int end = tile_start[t + 1];
 
@@ -264,8 +271,9 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
 
 #pragma unroll
   for (int i = 0; i < kPixelsPerThread; ++i) {
+    // Slab-local rows in the buffers.
     const size_t o =
-        (size_t)(ry[i] + (lane >> rect_w_log2)) * out_w + rx[i] + (lane & (rect_w - 1));
+        (size_t)(ry[i] - row0 + (lane >> rect_w_log2)) * out_w + rx[i] + (lane & (rect_w - 1));
     zbuf[o] = z[i];
     if (kWriteIbuf) ibuf[o] = id[i];
   }
@@ -288,10 +296,11 @@ int squarest(int width, int height, int area_log2) {
 // rows: (P, row_stride) f32 row table; the 12 raster comps at [lane0, lane0+12).
 // sorted_slot: the binned pair list; tile_start: (num_tiles + 1,) offsets.
 // zbuf / ibuf: (tiles_y * tile_h, out_w) row-major; ibuf may be null (depth only).
+// row0: the global pixel row of the buffers' first row (0: the whole frame).
 extern "C" int arctic_raster_tiles(
     const float* rows, int row_stride, int lane0, const int* sorted_slot,
     const int* tile_start, int num_tiles, int tiles_x, int tile_h, int tile_w,
-    int out_w, float* zbuf, int* ibuf, void* stream) {
+    int out_w, int row0, float* zbuf, int* ibuf, void* stream) {
   if (num_tiles <= 0) return (int)cudaSuccess;
   if (tile_h * tile_w > kMaxTilePixels) return (int)cudaErrorInvalidValue;
   // The sub-tile, then the 32-pixel rectangles in it (those always fit: the
@@ -306,11 +315,11 @@ extern "C" int arctic_raster_tiles(
   if (ibuf != nullptr) {
     raster_tiles_kernel<true><<<blocks, kThreads, 0, s>>>(
         rows, row_stride, lane0, vec_rows, sorted_slot, tile_start, tiles_x, tile_h, tile_w,
-        block_w_log2, rect_w_log2, out_w, zbuf, ibuf);
+        block_w_log2, rect_w_log2, out_w, row0, zbuf, ibuf);
   } else {
     raster_tiles_kernel<false><<<blocks, kThreads, 0, s>>>(
         rows, row_stride, lane0, vec_rows, sorted_slot, tile_start, tiles_x, tile_h, tile_w,
-        block_w_log2, rect_w_log2, out_w, zbuf, ibuf);
+        block_w_log2, rect_w_log2, out_w, row0, zbuf, ibuf);
   }
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,10 @@
 // [48:64) are zero. Uncovered pixels (ibuf < 0) get all-zero lanes, which is
 // what the one-hot product gave them.
 //
+// A slab of a sharded frame starts at pixel row row0 (the JAX kernel's
+// tile_row0, raster_tiles.py:646): py is the frame's row, row0 added as an
+// integer before the conversion; row0 = 0 is the unsharded frame.
+//
 // Bound on the H100: bytes — one 512 B row read (mostly L2 hits: neighbour
 // pixels share rows) and 64 x 4 B written per pixel; writes are coalesced
 // per G-buffer plane, row reads are not. Built with -fmad=false so the
@@ -26,7 +30,7 @@ constexpr int kLanes = 64;
 
 __global__ void select_interp_kernel(const float* __restrict__ rows,
                                      const int* __restrict__ ibuf, int height,
-                                     int width, float* __restrict__ gbuf) {
+                                     int width, int row0, float* __restrict__ gbuf) {
   const long long hw = (long long)height * width;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= hw) return;
@@ -37,7 +41,7 @@ __global__ void select_interp_kernel(const float* __restrict__ rows,
   }
   const float* r = rows + (size_t)slot * 128;
   const float px = (float)(int)(p % width) + 0.5f;
-  const float py = (float)(int)(p / width) + 0.5f;
+  const float py = (float)(int)(p / width + row0) + 0.5f;
   const float bw0 = r[0] * px + r[1] * py + r[2];
   const float bw1 = r[3] * px + r[4] * py + r[5];
   const float bw2 = r[6] * px + r[7] * py + r[8];
@@ -52,14 +56,16 @@ __global__ void select_interp_kernel(const float* __restrict__ rows,
 
 }  // namespace
 
-// rows (N, 128) f32 shade rows; ibuf (height, width) i32; gbuf (64, height, width) f32.
+// rows (N, 128) f32 shade rows; ibuf (height, width) i32; gbuf (64, height, width) f32;
+// row0: the global pixel row of ibuf's first row.
 extern "C" int arctic_select_interp(const float* rows, const int* ibuf,
-                                    int height, int width, float* gbuf,
+                                    int height, int width, int row0, float* gbuf,
                                     void* stream) {
   const long long hw = (long long)height * width;
   if (hw <= 0) return (int)cudaSuccess;
   const int threads = 256;
   const unsigned blocks = (unsigned)((hw + threads - 1) / threads);
-  select_interp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(rows, ibuf, height, width, gbuf);
+  select_interp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(rows, ibuf, height, width,
+                                                                       row0, gbuf);
   return (int)cudaGetLastError();
 }

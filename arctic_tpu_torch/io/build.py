@@ -534,6 +534,8 @@ def build_buffers(
         tri_matrow=static_rows[33:56, :cap],
         slot_static_rows=static_rows,
         tri_material=torch.as_tensor(tri_mat.astype(np.int32), device=device),
+        object_trs=f32(np.stack(trs_list)),
+        tri_obj=torch.as_tensor(tri_obj, device=device),
     )
     env_rows_t = None
     flags = dict(nm_constant=nm_constant, mr_constant=mr_constant)

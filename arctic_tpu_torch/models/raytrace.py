@@ -18,9 +18,9 @@ import torch
 from arctic_tpu_torch.core.config import RenderConfig
 from arctic_tpu_torch.core.scene import MAX_POINT_LIGHTS, SceneBuffers, SceneParams, Settings
 from arctic_tpu_torch.models import pipeline
-from arctic_tpu_torch.ops import rt, sky, tonemap
+from arctic_tpu_torch.ops import rt, sky
 from arctic_tpu_torch.ops.pbr import dot_cf, outgoing_radiance_cf
-from arctic_tpu_torch.utils.errors import RenderError
+from arctic_tpu_torch.utils.errors import RenderError, check_finite
 
 
 def build_scene_bvh(buffers: SceneBuffers) -> rt.BVH:
@@ -59,6 +59,7 @@ def render_frame_rt(
             "the per-slot quad tables); use the raster path"
         )
     pipeline.use_full_f32()
+    pipeline.check_frame_inputs(params, settings)
     h, w = config.height, config.width
     dev = buffers.device
     eye = params.camera.eye.tolist()
@@ -128,9 +129,9 @@ def render_frame_rt(
     background = torch.stack(sky.sample_environment_cf(
         pipeline.env_rows_bf16(buffers), env.block_grid, env.region, *dirs
     ))
-    hdr = torch.where(covered[None], color, background).half().float()
-    ldr = tonemap.tonemap(hdr, settings.tm_method, settings.gamma, settings.exposure)
-    return tonemap.to_unorm8(ldr).permute(1, 2, 0).contiguous()
+    hdr = torch.where(covered[None], color, background)
+    check_finite("ray-traced shade", hdr=hdr)
+    return pipeline.post_process(hdr, settings, config).contiguous()
 
 
 def make_rt_renderer(config: RenderConfig, bvh: rt.BVH, device: torch.device | str = "cuda"):

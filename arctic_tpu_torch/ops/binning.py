@@ -31,11 +31,16 @@ class BinnedPairs(NamedTuple):
     total_pairs: torch.Tensor  # () i32 pairs generated (> pair_cap = overflow)
 
 
-def _tile_footprints(setup: TriSetup, tiles_x, tiles_y, tile_w, tile_h, rect=None):
-    """Per-slot tile bbox + pair counts: (counts, tx0, ty0, w), int64.
+def _tile_footprints(setup: TriSetup, tiles_x, tiles_y, tile_w, tile_h, tile_row0=0,
+                     rect=None):
+    """Per-slot tile bbox + pair counts: (counts, tx0, ty0, w), int64, in
+    the window of tile rows [tile_row0, tile_row0 + tiles_y) (a slab of a
+    sharded frame; ty0 is window-local). A slot with no row in the window
+    is dropped.
 
-    ``rect`` (rx0, ry0, rx1, ry1) — inclusive tile coords — intersects every
-    slot's tile bbox; an empty rect (rx1 < rx0) culls everything."""
+    ``rect`` (rx0, ry0, rx1, ry1) — inclusive GLOBAL tile coords —
+    intersects every slot's tile bbox; an empty rect (rx1 < rx0) culls
+    everything."""
     x0, y0, x1, y1 = setup.bbox
     valid = setup.valid
 
@@ -43,15 +48,16 @@ def _tile_footprints(setup: TriSetup, tiles_x, tiles_y, tile_w, tile_h, rect=Non
     # bbox is exclusive at x1/y1: ending exactly on a tile boundary does not
     # cover the next tile's pixel centres.
     tx1 = torch.clamp(((x1 - 1e-3) / tile_w).to(torch.int32), 0, tiles_x - 1).long()
-    ty0 = torch.clamp((y0 / tile_h).to(torch.int32), min=0).long()
-    ty1 = torch.clamp(((y1 - 1e-3) / tile_h).to(torch.int32), max=tiles_y - 1).long()
+    ty0 = torch.clamp((y0 / tile_h).to(torch.int32).long() - tile_row0, min=0)
+    ty1 = torch.clamp(((y1 - 1e-3) / tile_h).to(torch.int32).long() - tile_row0,
+                      max=tiles_y - 1)
 
     if rect is not None:
         rx0, ry0, rx1, ry1 = rect
         tx0 = torch.maximum(tx0, rx0)
         tx1 = torch.minimum(tx1, rx1)
-        ty0 = torch.maximum(ty0, ry0)
-        ty1 = torch.minimum(ty1, ry1)
+        ty0 = torch.maximum(ty0, ry0 - tile_row0)
+        ty1 = torch.minimum(ty1, ry1 - tile_row0)
         valid = valid & (tx1 >= tx0)
         tx0 = torch.clamp(tx0, max=tiles_x - 1)
 
@@ -66,22 +72,25 @@ def _tile_footprints(setup: TriSetup, tiles_x, tiles_y, tile_w, tile_h, rect=Non
 
 
 def count_pairs(setup: TriSetup, tiles_x: int, tiles_y: int, tile_w: int, tile_h: int,
-                rect=None) -> torch.Tensor:
+                tile_row0: int = 0, rect=None) -> torch.Tensor:
     """Total (tile, slot) pairs bin_triangles would generate (0-dim i32),
     without the sort: pipeline.autotune_pair_caps sizes the pair buffers
     with it."""
-    counts = _tile_footprints(setup, tiles_x, tiles_y, tile_w, tile_h, rect)[0]
+    counts = _tile_footprints(setup, tiles_x, tiles_y, tile_w, tile_h, tile_row0, rect)[0]
     return counts.sum().to(torch.int32)
 
 
 def bin_triangles(
     setup: TriSetup, tiles_x: int, tiles_y: int, tile_w: int, tile_h: int,
-    pair_capacity: int, rect=None,
+    pair_capacity: int, tile_row0: int = 0, rect=None,
 ) -> BinnedPairs:
-    """Bin the valid slots into a (tiles_y, tiles_x) tile grid."""
+    """Bin the valid slots into the (tiles_y, tiles_x) tile window whose
+    first row is global tile row ``tile_row0`` (0: the whole frame); tile
+    ids in the output are window-local."""
     num_tiles = tiles_x * tiles_y
     dev = setup.valid.device
-    counts, tx0, ty0, w = _tile_footprints(setup, tiles_x, tiles_y, tile_w, tile_h, rect)
+    counts, tx0, ty0, w = _tile_footprints(setup, tiles_x, tiles_y, tile_w, tile_h, tile_row0,
+                                           rect)
     cum = torch.cumsum(counts, 0)  # inclusive
     total = cum[-1]
     pos = torch.arange(pair_capacity, dtype=torch.int64, device=dev)

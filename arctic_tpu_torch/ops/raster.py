@@ -228,22 +228,26 @@ def setup_screen_triangles(
     )
 
 
-def pixel_centers(height: int, width: int, device=None):
-    """(px, py) pixel-centre grids, each (H, W) f32."""
-    ys = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+def pixel_centers(height: int, width: int, device=None, y_offset: int = 0):
+    """(px, py) pixel-centre grids, each (H, W) f32; ``y_offset`` shifts the
+    rows (a slab of a sharded frame whose first row is the frame's row
+    y_offset)."""
+    ys = (torch.arange(height, device=device) + y_offset).to(torch.float32) + 0.5
     xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     return px, py
 
 
-def rasterize_bruteforce(setup: TriSetup, height: int, width: int, chunk: int = 256):
-    """Depth-test every triangle against every pixel (the raster oracle).
+def rasterize_bruteforce(setup: TriSetup, height: int, width: int, chunk: int = 256,
+                         y_offset: int = 0):
+    """Depth-test every triangle against every pixel (the raster oracle) of
+    an (H, W) window whose first row is the frame's row ``y_offset``.
 
     Depth LESS with draw-order ties: a pixel keeps the first slot that
     reaches its minimum accepted depth. Returns (zbuf f32 (H, W) cleared to
     1.0, ibuf i32 (H, W) cleared to -1)."""
     dev = setup.valid.device
-    px, py = pixel_centers(height, width, dev)
+    px, py = pixel_centers(height, width, dev, y_offset)
     px, py = px.reshape(-1, 1), py.reshape(-1, 1)
     zbuf = torch.ones(height * width, dtype=torch.float32, device=dev)
     ibuf = torch.full((height * width,), -1, dtype=torch.int32, device=dev)

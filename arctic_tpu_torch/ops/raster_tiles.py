@@ -40,12 +40,13 @@ PLAIN_CHUNK = 1024
 # --------------------------------------------------------------------------
 
 
-def _pair_chunks(rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w):
+def _pair_chunks(rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w, row0=0):
     """Every pair of the lists against every pixel of its tile, PLAIN_CHUNK
     pairs at a time: yields (list positions (n,), z (n, tile px), inside
-    (n, tile px): all three edges >= 0, global pixel index (n, tile px) in
-    the (tiles_y * tile_h, tiles_x * tile_w) buffer), each plane evaluated
-    as (A*px + B*py) + C at the pixel centre, as K1 does."""
+    (n, tile px): all three edges >= 0, pixel index (n, tile px) in the
+    (tiles_y * tile_h, tiles_x * tile_w) buffer), each plane evaluated as
+    (A*px + B*py) + C at the pixel centre, as K1 does; the buffer's first
+    row is the frame's pixel row ``row0``."""
     dev = rows.device
     n_pairs = int(tile_start[-1])
     loc = torch.arange(tile_h * tile_w, device=dev)
@@ -58,7 +59,7 @@ def _pair_chunks(rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w):
         gx = (t % tiles_x)[:, None] * tile_w + lx[None]
         gy = (t // tiles_x)[:, None] * tile_h + ly[None]
         px = gx.to(torch.float32) + 0.5
-        py = gy.to(torch.float32) + 0.5
+        py = (gy + row0).to(torch.float32) + 0.5
 
         def plane(j):
             return r[:, j : j + 1] * px + r[:, j + 1 : j + 2] * py + r[:, j + 2 : j + 3]
@@ -69,7 +70,7 @@ def _pair_chunks(rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w):
 
 def raster_tiles_plain(
     rows, lane0, sorted_slot, tile_start, tiles_x, tiles_y, tile_h, tile_w,
-    depth_only=False,
+    depth_only=False, row0=0,
 ):
     """Plain torch K1: brute force within the tile lists. Every pair is
     tested against every pixel of its tile; a pixel keeps the smallest
@@ -83,7 +84,7 @@ def raster_tiles_plain(
 
     def evaluate():
         for ks, z, inside, pix in _pair_chunks(
-            rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w
+            rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w, row0
         ):
             ok = inside & (z >= 0.0) & (z < 1.0)
             yield ks, torch.where(ok, z, torch.inf), pix
@@ -130,7 +131,7 @@ def block_rejects(rows12, x_lo, x_hi, y_lo, y_hi):
 
 def covered_pair_pixels(
     rows, lane0, sorted_slot, tile_start, tiles_x, tiles_y, tile_h, tile_w,
-    depth_only=False,
+    depth_only=False, row0=0,
 ) -> int:
     """The (pair, pixel of its tile) combinations of one K1 call whose three
     edge tests pass: the depth tests that any exact raster of these lists
@@ -138,7 +139,7 @@ def covered_pair_pixels(
     return sum(
         int(inside.sum())
         for _, _, inside, _ in _pair_chunks(
-            rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w
+            rows, lane0, sorted_slot, tile_start, tiles_x, tile_h, tile_w, row0
         )
     )
 
@@ -151,18 +152,20 @@ def covered_pair_pixels(
 )
 def raster_tiles(
     rows, lane0, sorted_slot, tile_start, tiles_x, tiles_y, tile_h, tile_w,
-    depth_only=False,
+    depth_only=False, row0=0,
 ):
     """K1: per-tile depth raster over the binned pair lists.
 
     rows: (P, stride) f32 row table whose lanes [lane0, lane0 + 12) hold a
     slot's 3 edge planes and z plane; sorted_slot / tile_start: the binning.
-    Returns (zbuf (H_pad, W_pad) f32 cleared to 1.0, ibuf (H_pad, W_pad) i32
-    cleared to -1, or None when ``depth_only``)."""
+    ``row0``: the frame's pixel row of the buffers' first row (a slab of a
+    sharded frame; 0 = the whole frame). Returns (zbuf (H_pad, W_pad) f32
+    cleared to 1.0, ibuf (H_pad, W_pad) i32 cleared to -1, or None when
+    ``depth_only``)."""
     if not rows.is_cuda:
         return raster_tiles_plain(
             rows, lane0, sorted_slot, tile_start, tiles_x, tiles_y, tile_h,
-            tile_w, depth_only,
+            tile_w, depth_only, row0,
         )
     num_tiles = tiles_x * tiles_y
     kernels.check_cuda(rows, "rows", torch.float32)
@@ -174,11 +177,13 @@ def raster_tiles(
     if npix % 256 or npix > 4096:
         raise ValueError(f"tile {tile_h}x{tile_w}: pixels must be a multiple of 256, <= 4096")
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    if not 0 <= row0 < (1 << 23) - hp:
+        raise ValueError(f"row0 = {row0}: pixel rows must stay below 2^23")
     zbuf = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
     ibuf = None if depth_only else torch.empty((hp, wp), dtype=torch.int32, device=rows.device)
     kernels.launch(
         "arctic_raster_tiles", rows, rows.shape[1], lane0, sorted_slot, tile_start,
-        num_tiles, tiles_x, tile_h, tile_w, wp, zbuf, ibuf,
+        num_tiles, tiles_x, tile_h, tile_w, wp, row0, zbuf, ibuf,
     )
     raster_tiles.launches += 1
     return zbuf, ibuf
@@ -301,9 +306,11 @@ def transpose_pack_rows(stacked: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def select_interp_plain(rows: torch.Tensor, ibuf: torch.Tensor) -> torch.Tensor:
+def select_interp_plain(rows: torch.Tensor, ibuf: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """Plain torch K4: read each covered pixel's shade row by slot id,
-    perspective-correct barycentrics, interpolate / copy into 64 lanes."""
+    perspective-correct barycentrics at the frame's pixel centre (ibuf's
+    first row is the frame's row ``row0``), interpolate / copy into 64
+    lanes."""
     h, w = ibuf.shape
     cov = (ibuf >= 0).reshape(-1, 1)
     r = torch.where(cov, rows[torch.clamp(ibuf, min=0).reshape(-1).long()], 0.0)
@@ -312,7 +319,7 @@ def select_interp_plain(rows: torch.Tensor, ibuf: torch.Tensor) -> torch.Tensor:
         indexing="ij",
     )
     px = px.reshape(-1).to(torch.float32) + 0.5
-    py = py.reshape(-1).to(torch.float32) + 0.5
+    py = (py.reshape(-1) + row0).to(torch.float32) + 0.5
     bw = [r[:, 3 * c] * px + r[:, 3 * c + 1] * py + r[:, 3 * c + 2] for c in range(3)]
     den = bw[0] + bw[1] + bw[2]
     den = torch.where(den == 0.0, 1.0, den)
@@ -328,15 +335,18 @@ def select_interp_plain(rows: torch.Tensor, ibuf: torch.Tensor) -> torch.Tensor:
     "arctic_tpu/ops/raster_tiles.py:594 (_select_kernel)",
     select_interp_plain,
 )
-def select_interp(rows: torch.Tensor, ibuf: torch.Tensor) -> torch.Tensor:
-    """K4: (N, 128) shade rows + (H, W) i32 ibuf -> (64, H, W) G-buffer."""
+def select_interp(rows: torch.Tensor, ibuf: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """K4: (N, 128) shade rows + (H, W) i32 ibuf -> (64, H, W) G-buffer;
+    ``row0``: the frame's pixel row of ibuf's first row (a slab)."""
     if not rows.is_cuda:
-        return select_interp_plain(rows, ibuf)
+        return select_interp_plain(rows, ibuf, row0)
     kernels.check_cuda(rows, "rows", torch.float32, (rows.shape[0], 128))
     kernels.check_cuda(ibuf, "ibuf", torch.int32)
     h, w = ibuf.shape
+    if not 0 <= row0 < (1 << 23) - h:
+        raise ValueError(f"row0 = {row0}: pixel rows must stay below 2^23")
     out = torch.empty((GBUF_LANES, h, w), dtype=torch.float32, device=rows.device)
-    kernels.launch("arctic_select_interp", rows, ibuf, h, w, out)
+    kernels.launch("arctic_select_interp", rows, ibuf, h, w, row0, out)
     select_interp.launches += 1
     return out
 
@@ -349,24 +359,26 @@ def select_interp(rows: torch.Tensor, ibuf: torch.Tensor) -> torch.Tensor:
 def bin_and_rasterize(
     setup: TriSetup, config: RenderConfig, tiles_x: int, tile_rows: int,
     th: int, tw: int, depth_only: bool = False,
-    shade_rows: torch.Tensor | None = None, rect=None,
+    shade_rows: torch.Tensor | None = None, rect=None, tile_row0: int = 0,
 ):
-    """Bin + tile-raster; returns (zbuf, ibuf or None, BinnedPairs) with
-    (tile_rows * th, tiles_x * tw) buffers.
+    """Bin + tile-raster the window of tile rows [tile_row0, tile_row0 +
+    tile_rows) (a slab of a sharded frame; 0 and every row: the whole
+    frame); returns (zbuf, ibuf or None, BinnedPairs) with (tile_rows * th,
+    tiles_x * tw) buffers.
 
     With ``shade_rows`` the kernel streams the 128-lane shade-row table
     itself (raster planes at lanes 112:124); otherwise the 16-float raster
     row table (the shadow pass). A depth-only pass is the shadow pass and
-    takes its pair capacity."""
+    takes its pair capacity. ``rect`` is in global tile coordinates."""
     pair_cap = config.pair_capacity(setup.capacity, "shadow" if depth_only else "cam")
-    pairs = binning.bin_triangles(setup, tiles_x, tile_rows, tw, th, pair_cap, rect=rect)
+    pairs = binning.bin_triangles(setup, tiles_x, tile_rows, tw, th, pair_cap, tile_row0, rect)
     if shade_rows is not None:
         rows, lane0 = shade_rows, SHADE_ROW_RASTER_LANE
     else:
         rows, lane0 = binning.raster_row_table(setup), 0
     zbuf, ibuf = raster_tiles(
         rows, lane0, pairs.sorted_slot, pairs.tile_start, tiles_x, tile_rows,
-        th, tw, depth_only=depth_only,
+        th, tw, depth_only=depth_only, row0=tile_row0 * th,
     )
     return zbuf, ibuf, pairs
 
@@ -374,32 +386,41 @@ def bin_and_rasterize(
 def rasterize_tiled(
     setup: TriSetup, height: int, width: int, config: RenderConfig,
     tile_h: int | None = None, tile_w: int | None = None,
-    depth_only: bool = False, rect=None,
+    depth_only: bool = False, rect=None, tile_row0: int = 0,
+    tile_rows: int | None = None, crop: bool = True,
 ):
-    """Binned tiled rasterization: (zbuf (H, W), ibuf (H, W) or None,
-    total_pairs)."""
+    """Binned tiled rasterization of the (height, width) viewport: (zbuf,
+    ibuf or None, total_pairs). A sharded caller rasters only tile rows
+    [tile_row0, tile_row0 + tile_rows) and takes the padded (tile_rows * th,
+    tiles_x * tw) buffers with ``crop=False``; otherwise they are cropped to
+    (H, W)."""
     th = tile_h or config.tile_h
     tw = tile_w or config.tile_w
     tiles_x = -(-width // tw)
-    tile_rows = -(-height // th)
+    if tile_rows is None:
+        tile_rows = -(-height // th)
     zbuf, ibuf, pairs = bin_and_rasterize(
-        setup, config, tiles_x, tile_rows, th, tw, depth_only, rect=rect
+        setup, config, tiles_x, tile_rows, th, tw, depth_only, rect=rect, tile_row0=tile_row0
     )
-    zbuf = zbuf[:height, :width]
-    ibuf = None if ibuf is None else ibuf[:height, :width]
+    if crop:
+        zbuf = zbuf[:height, :width]
+        ibuf = None if ibuf is None else ibuf[:height, :width]
     return zbuf, ibuf, pairs.total_pairs
 
 
 def raster_gbuffer(
     setup: TriSetup, shade_rows: torch.Tensor, height: int, width: int,
-    config: RenderConfig,
+    config: RenderConfig, tile_row0: int = 0, tile_rows: int | None = None,
 ):
-    """Fused visibility + shading-input resolve of the camera pass:
-    (ibuf (H_pad, W_pad) i32, gbuf (64, H_pad, W_pad) f32, total_pairs)."""
+    """Fused visibility + shading-input resolve of the camera pass over
+    tile rows [tile_row0, tile_row0 + tile_rows) (default: the whole
+    frame): (ibuf (tile_rows * th, W_pad) i32, gbuf (64, tile_rows * th,
+    W_pad) f32, total_pairs)."""
     th, tw = config.tile_h, config.tile_w
     tiles_x = -(-width // tw)
-    tile_rows = -(-height // th)
+    if tile_rows is None:
+        tile_rows = -(-height // th)
     _, ibuf, pairs = bin_and_rasterize(
-        setup, config, tiles_x, tile_rows, th, tw, shade_rows=shade_rows
+        setup, config, tiles_x, tile_rows, th, tw, shade_rows=shade_rows, tile_row0=tile_row0
     )
-    return ibuf, select_interp(shade_rows, ibuf), pairs.total_pairs
+    return ibuf, select_interp(shade_rows, ibuf, row0=tile_row0 * th), pairs.total_pairs

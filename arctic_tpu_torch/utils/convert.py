@@ -65,6 +65,8 @@ def scene_buffers(jb, device="cpu") -> SceneBuffers:
         tri_matrow=tensor(g.tri_matrow, device),
         slot_static_rows=None if g.slot_static_rows is None else tensor(g.slot_static_rows, device),
         tri_material=tensor(g.tri_material, device),
+        object_trs=tensor(g.object_trs, device),
+        tri_obj=tensor(g.tri_obj, device),
     )
     flags = dict(nm_constant=bool(a.nm_constant), mr_constant=bool(a.mr_constant))
     env_rows = None

@@ -6,7 +6,8 @@
 The real-size default scene comes through bench.py's GLB + HDR round trip
 (phase 4), and the CLI renders a GLB (phase 4g). The per-slot, unmerged
 and grouped texture routes and the ray-traced mode (K14 bvh_trace) run
-last (3i-3l, 4j-4l). Four frame paths are driven first: the default one (exact f32 PCF; kernels K1
+after the others (3i-3l, 4j-4l); the sharded frame, the viewer and the
+debug checks last (6a-6f). Four frame paths are driven first: the default one (exact f32 PCF; kernels K1
 raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve), the
 quantised PCF path of RenderConfig.pcf_row_cap (the same four plus K7
 window_lut_q and K8 pcf_eval), with and without a sun cache, the textured
@@ -140,9 +141,42 @@ which raises on failure (exit code != 0):
    of 192^2 diffuse and 96^2 normal maps, its own tuned caps, the
    fly-through (K1, K3, K4), frame 0 within 1 LSB of its deferred frame on
    >= 99% of the pixels; median and peak printed;
+6a. (after 4l, as are 6b-6f) tile-row sharding (parallel/sharding.py) over
+   a world of one NCCL rank on the card: the entry frame on the default,
+   quantised (pcf_row_cap=384), textured and brute-force paths bit-equal to
+   the single-card frame of the same config, with equal stats, each path's
+   kernels launched and no other; and the CLI's --devices 1 on cuda (a
+   spawned rank over NCCL) on 4g's GLB, its PNG bit-equal to 4g's in-process
+   frame;
+6b. render_frame_slabs_with_map (the slab stages rank after rank in one
+   process) at 128x96 / 128^2 and 192x136 / 320^2 as 2, 3 and 8 slabs:
+   frames and gathered shadow maps bit-equal to the single-card ones, every
+   rank launching K1 twice and K4 once, with row0 != 0 on every rank but the
+   first (the launch counts and row offsets printed);
+6c. phase 4's default config and tuned caps at frame 0's viewpoint, over a
+   world of one NCCL rank and as 4 slabs (17 camera tile rows rounded to
+   20, 63 shadow tile rows to 64, so the last camera window is partial):
+   each bit-equal to phase 4's frame 0; per-rank pairs, slab ms (CUDA
+   events) and peak memory beside the whole frame's printed;
+6d. with two or more cards, launch() over NCCL with up to 4 processes
+   (rank r on cuda:r) at the entry size, every rank's frame bit-equal to
+   the single-card frame, and the CLI's --devices with as many ranks; with
+   one card it prints "6d skipped: 1 card";
+6e. the viewer (app/viewer.py) served on 127.0.0.1:0 in a thread at the
+   entry size on the fused path: /, then /frame with the entry camera, a
+   camera move, a tonemap change, a light edit, a sun edit and an object
+   edit, then /state; each PNG, decoded by io/images, bit-equal to the
+   in-process frame of the viewer's state; K1 once a frame where the sun
+   and geometry stay (the cached sun), twice where the cache is rebuilt
+   (the first frame, the sun and the object edit);
+6f. enable_debug_checks: the entry frame and real-size frame 0 bit-equal
+   to the unchecked ones of phases 3 and 4; a NaN light colour raises
+   FloatingPointError at the frame's inputs, a NaN corner normal of a
+   covered triangle at forward_visibility;
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded; K14 on every
-   ray of the real-size calls, frame 0's and the light-shadow frame's): bit-exact
+   ray of the real-size calls, frame 0's and the light-shadow frame's; K1
+   and K4 also on every slab call of 6b and 6c, row0 != 0 included): bit-exact
    equality, CUDA-event times of kernel and plain version at the real-size
    shapes (K1 also per call: camera, shadow), and each kernel's bound on
    these inputs (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
@@ -253,6 +287,17 @@ RT_CORE_AGREE_SHARE = 0.999
 # 4l: 24 materials with 192^2 diffuse and metal-roughness maps and 96^2
 # normal maps (24 x 192^2 = 884,736 texels, under the 1M tile threshold).
 PER_SLOT_TEXTURE = 192
+# 6b: render_frame_slabs_stats at tests/test_sharding.py's shapes (width,
+# height, shadow size), each as this many slabs.
+SLAB_SHAPES = ((128, 96, 128), (192, 136, 320))
+SLAB_RANKS = (2, 3, 8)
+# 6c: the real-size frame as this many slabs (17 camera tile rows -> 20,
+# 63 shadow tile rows -> 64: the last rank's camera window is partial).
+REAL_SLABS = 4
+# 6d: at most this many cards, one NCCL rank each.
+MULTI_CARD_RANKS = 4
+# 6e: the viewer's pair-cap headroom over its first viewpoint (viewer.main's).
+VIEWER_MARGIN = 4.0
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -459,6 +504,29 @@ def run_cli():
         f"{db:.2f} dB vs its f64 oracle ({time.perf_counter() - t:.1f} s)")
     if db < 40.0:
         raise RuntimeError(f"the CLI's frame PSNR {db:.2f} dB < 40 dB")
+    return glb, img
+
+
+def run_cli_devices(glb, want, world: int) -> None:
+    """6a / 6d: the CLI's ``--devices N`` on cuda at the entry size and
+    camera on run_cli's GLB: N spawned ranks over NCCL (rank r on cuda:r),
+    each tuning the pair caps on its card; rank 0's PNG, decoded by
+    io/images, bit-equal to run_cli's in-process frame (``want``)."""
+    from arctic_tpu_torch.app import cli
+    from arctic_tpu_torch.io.images import load_ldr
+
+    w, h, s = ENTRY["width"], ENTRY["height"], ENTRY["shadow"]
+    out = os.path.join(OUT_DIR, "cli", f"devices{world}.png")
+    cam = ",".join(str(v) for v in ENTRY["eye"] + ENTRY["rot"])
+    label = f"CLI --devices {world} on cuda"
+    t = time.perf_counter()
+    rc = cli.main(["render", glb, "--width", str(w), "--height", str(h), "--shadow-size",
+                   str(s), f"--camera={cam}", "--devices", str(world), "--out", out])
+    if rc != 0:
+        raise RuntimeError(f"{label}: the CLI returned {rc}")
+    same_frame(load_ldr(out)[..., :3], want, label, "the in-process frame of the loaded GLB")
+    log(f"{label}: rank 0's PNG bit-equal to the in-process frame of the loaded GLB "
+        f"({time.perf_counter() - t:.1f} s with the processes' start)")
 
 
 def lsb_gate(img, ref, label: str, what: str) -> None:
@@ -1839,6 +1907,375 @@ def run_real_per_slot(device, profile: bool = False):
     return summary
 
 
+def shard_scene(width, height, shadow, **fields):
+    """Cornell at (width, height, shadow) with the entry camera, on the card."""
+    import dataclasses
+
+    from arctic_tpu_torch.core.config import RenderConfig
+    from arctic_tpu_torch.core.scene import make_camera
+
+    _, _, bufs, params, settings = entry_scene("cuda")
+    params.camera = make_camera(ENTRY["eye"], ENTRY["rot"], width / height)
+    config = dataclasses.replace(RenderConfig(width=width, height=height, shadow_size=shadow),
+                                 **fields)
+    return config, bufs, params, settings
+
+
+def single_shadow_map(bufs, params, config):
+    """The single-device frame's shadow map (inside its sun-cull rect)."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+
+    geom = bufs.geometry
+    wc = pipeline.world_corners(geom)
+    tri_valid = torch.arange(geom.capacity, device=bufs.device) < geom.num_tris
+    sun_pv = params.sun.proj_view()
+    rect = None
+    if pipeline.fused(config) and config.sun_frustum_cull:
+        rect, _ = pipeline.sun_cull_rect(wc, tri_valid, params.camera.proj_view(), sun_pv, config)
+    return pipeline.shadow_pass(geom, pipeline.corners_clip(wc, sun_pv), config, rect)[0]
+
+
+def same_frame(got, want, label: str, what: str) -> None:
+    """Fail unless the two u8 frames (tensors or arrays) are bit-equal."""
+    import numpy as np
+    import torch
+
+    got, want = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+                 for x in (got, want))
+    if got.shape != want.shape or not np.array_equal(got, want):
+        d = (np.abs(got.astype(np.int32) - want.astype(np.int32)) if got.shape == want.shape
+             else None)
+        raise RuntimeError(f"{label}: differs from {what}" + (
+            "" if d is None else f" (max {d.max()} LSB on {int((d > 0).sum())} values)"))
+
+
+def int_stats(stats) -> dict:
+    return {k: int(v) for k, v in stats.items()}
+
+
+def run_sharded_world1():
+    """6a: the sharded frame over a world of one NCCL rank (bench.py:158-185's
+    check) on the entry scene's default, quantised, textured and
+    brute-force paths: bit-equal to the single-card frame of the same
+    config, with equal stats, each path's kernels launched and no other."""
+    import dataclasses
+
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.parallel import sharding
+    from arctic_tpu_torch.utils import kernels
+
+    cases = (("default", {}, False, DEFAULT_PATH), ("quantised", dict(pcf_row_cap=ENTRY_ROWS),
+                                                    False, QUANT_PATH),
+             ("textured", {}, True, TEX_PATH), ("brute-force", dict(force_bruteforce=True),
+                                                False, ()))
+    for name, fields, textured, path in cases:
+        label = f"6a world-1 NCCL {name} entry"
+        config, _, bufs, params, settings = entry_scene("cuda", textured=textured)
+        config = dataclasses.replace(config, **fields)
+        want, wst = pipeline.render_frame_stats(bufs, params, settings, config)
+        kernels.reset_launch_counts()
+        img, st = sharding.make_sharded_renderer_stats(config)(bufs, params, settings)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log(f"{label} launches: {counts}")
+        check_launches(counts, path, label, absent=tuple(k for k in counts if k not in path))
+        pipeline.check_stats(st)
+        same_frame(img, want, label, "the single-card frame")
+        if int_stats(st) != int_stats(wst):
+            raise RuntimeError(f"{label}: stats {int_stats(st)} != single-card {int_stats(wst)}")
+        log(f"{label}: bit-equal to the single-card frame, stats equal {int_stats(st)}")
+
+
+def run_slabs_entry():
+    """6b: render_frame_slabs_with_map on the card, as SLAB_RANKS slabs at each
+    of SLAB_SHAPES: frame and the gathered shadow map it read bit-equal to
+    the single-card ones; every rank launches K1 twice (its shadow and camera slab) and K4
+    once, with row0 != 0 on every rank but the first. Returns the recorded
+    K1 / K4 calls (phase 5)."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.parallel import sharding
+    from arctic_tpu_torch.utils import kernels
+
+    recorded = {"raster_tiles": [], "select_interp": []}
+    for w, h, s in SLAB_SHAPES:
+        config, bufs, params, settings = shard_scene(w, h, s)
+        single, _ = pipeline.render_frame_stats(bufs, params, settings, config)
+        single_map = single_shadow_map(bufs, params, config)
+        for world in SLAB_RANKS:
+            label = f"6b {w}x{h}/{s}^2 as {world} slabs"
+            layout = sharding.slab_layout(config, world)
+            kernels.reset_launch_counts()
+            with kernels.record_calls() as calls:
+                img, st, smap = sharding.render_frame_slabs_with_map(bufs, params, settings, config,
+                                                                     world)
+                torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            pipeline.check_stats(st)
+            want = {"raster_tiles": 2 * world, "select_interp": world,
+                    "pack_shade_rows": world, "tap_resolve": world}
+            if any(counts[k] != n for k, n in want.items()):
+                raise RuntimeError(f"{label}: launches {counts}, want {want}")
+            k1_rows = [kw["row0"] for _, kw in calls["raster_tiles"]]
+            k4_rows = [kw["row0"] for _, kw in calls["select_interp"]]
+            cam = [r * layout.cam_rows * config.tile_h for r in range(world)]
+            if k1_rows != [r * layout.sh_rows * 64 for r in range(world)] + cam or k4_rows != cam:
+                raise RuntimeError(f"{label}: K1 row0 {k1_rows}, K4 row0 {k4_rows}")
+            same_frame(img, single, label, "the single-card frame")
+            if not torch.equal(smap, single_map):
+                raise RuntimeError(f"{label}: the gathered shadow map differs from the "
+                                   f"single-card map")
+            for k in recorded:
+                recorded[k] += calls[k]
+            log(f"{label}: frame and shadow map bit-equal to the single-card ones; launches "
+                f"{counts}; K1 row0 {k1_rows}, K4 row0 {k4_rows}; stats {int_stats(st)}")
+    return recorded
+
+
+def run_real_sharded(bufs, config, frame0):
+    """6c: phase 4's default config and tuned caps at frame 0's viewpoint,
+    over a world of one NCCL rank and as REAL_SLABS slabs: each bit-equal to
+    phase 4's frame 0 (``frame0``); per-rank pairs, slab ms (CUDA events,
+    the rank's shadow and camera slab) and peak memory above the resident
+    bytes, beside the whole frame's. Returns the slabs' recorded K1 / K4
+    calls (phase 5)."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.parallel import sharding
+    from arctic_tpu_torch.utils import kernels
+
+    params, settings = real_params(0)
+    label = "6c real-size world-1 NCCL"
+    kernels.reset_launch_counts()
+    img, st = sharding.make_sharded_renderer_stats(config)(bufs, params, settings)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_launches(counts, DEFAULT_PATH, label, absent=tuple(k for k in counts
+                                                              if k not in DEFAULT_PATH))
+    pipeline.check_stats(st)
+    same_frame(img, frame0, label, "phase 4's frame 0")
+    log(f"{label}: bit-equal to phase 4's frame 0; launches {counts}; stats {int_stats(st)}")
+
+    label = f"6c real-size as {REAL_SLABS} slabs"
+    layout = sharding.slab_layout(config, REAL_SLABS)
+    kernels.reset_launch_counts()
+    with kernels.record_calls() as calls:
+        img, st, shadow_map = sharding.render_frame_slabs_with_map(bufs, params, settings, config,
+                                                                   REAL_SLABS)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if counts["raster_tiles"] != 2 * REAL_SLABS or counts["select_interp"] != REAL_SLABS:
+        raise RuntimeError(f"{label}: launches {counts}")
+    pipeline.check_stats(st)
+    same_frame(img, frame0, label, "phase 4's frame 0")
+    log(f"{label} ({layout.cam_tile_rows} camera tile rows, {layout.cam_rows} a rank; "
+        f"{layout.sh_tile_rows} shadow tile rows, {layout.sh_rows} a rank): bit-equal to phase "
+        f"4's frame 0; launches {counts}; stats {int_stats(st)}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    pipeline.render_frame_stats(bufs, params, settings, config)
+    torch.cuda.synchronize()
+    whole = torch.cuda.max_memory_allocated() - resident
+    front = sharding.replicated_inputs(bufs, params, config)
+    rows = []
+    for r in range(REAL_SLABS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, sh_pairs = sharding.shadow_slab(bufs, config, layout, r, front)
+        _, c = sharding.camera_slab(bufs, params, settings, config, layout, r, shadow_map, front)
+        end.record()
+        end.synchronize()
+        rows.append(dict(rank=r, cam_pairs=int(c["cam_pairs"]), shadow_pairs=int(sh_pairs),
+                         ms=start.elapsed_time(end),
+                         peak=torch.cuda.max_memory_allocated() - resident))
+    log(f"6c per-rank slabs (shadow + camera slab; replicated inputs and the gathered map "
+        f"resident): {rows}; the whole frame's peak above its resident bytes {whole} B")
+    return {k: calls[k] for k in ("raster_tiles", "select_interp")}
+
+
+def run_multi_card(glb, cli_img):
+    """6d: with two or more cards, launch() over NCCL with min(count,
+    MULTI_CARD_RANKS) processes (rank r on cuda:r) at the entry size: every
+    rank's frame bit-equal to the single-card frame, its stats equal to the
+    slab frame's of as many ranks; then the CLI's --devices with as many
+    ranks (run_cli_devices)."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.parallel import sharding
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("6d skipped: 1 card")
+        return
+    world = min(n, MULTI_CARD_RANKS)
+    config, _, bufs, params, settings = entry_scene("cuda")
+    want, _ = pipeline.render_frame_stats(bufs, params, settings, config)
+    _, wst = sharding.render_frame_slabs_stats(bufs, params, settings, config, world)
+    t = time.perf_counter()
+    out = sharding.launch(world, sharding.frame_worker, bufs.to("cpu"), params, settings, config,
+                          device="cuda")
+    for rank, (img, st) in enumerate(out):
+        same_frame(img, want, f"6d NCCL rank {rank} of {world}", "the single-card frame")
+        if st != int_stats(wst):
+            raise RuntimeError(f"6d NCCL rank {rank}: stats {st} != the slabs' {int_stats(wst)}")
+    log(f"6d NCCL over {world} cards ({time.perf_counter() - t:.1f} s with the processes' "
+        f"start): every rank's frame bit-equal to the single-card frame, stats {out[0][1]}")
+    run_cli_devices(glb, cli_img, world)
+
+
+def run_viewer():
+    """6e: the viewer served on 127.0.0.1:0 in a thread at the entry size on
+    the fused default path: / then /frame with the entry camera, a camera
+    move, a tonemap change, a light edit, a sun edit and an object edit,
+    then /state. Each PNG, decoded by io/images, is bit-equal to the
+    in-process frame of the viewer's state after it; a frame with the sun
+    and geometry unchanged launches K1 once (the cached sun), the first
+    frame and the sun and object edits rebuild the cache (K1 twice)."""
+    import http.client
+    import json
+    import threading
+    from http.server import ThreadingHTTPServer
+    from urllib.parse import urlencode
+
+    import torch
+
+    from arctic_tpu_torch.app import viewer
+    from arctic_tpu_torch.io.images import decode_png
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    config, _, bufs, params, settings = entry_scene("cuda")
+    config = pipeline.autotune_pair_caps(bufs, params, config, margin=VIEWER_MARGIN)
+    state = viewer.ViewerState(bufs, params, settings, config,
+                               pipeline.make_renderer_stats(config), "cuda")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), viewer.make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    cam = ",".join(str(v) for v in ENTRY["eye"]), ",".join(str(v) for v in ENTRY["rot"])
+    lights = [{"pos": [0, 1, 0], "color": [10, 0, 0]}, {"pos": [2, 3, -1], "color": [0, 5, 20]}]
+    requests = (
+        ("entry camera", dict(cam_pos=cam[0], cam_rot=cam[1]), True),
+        ("camera move", dict(f=1, dx=12, dy=-4), False),
+        ("tonemap change", dict(tm=2, exposure=1.5, gamma=2.0), False),
+        ("light edit", dict(lights=json.dumps(lights)), False),
+        ("sun edit", dict(sun_rot="-50,30", sun_color="6,6,5"), True),
+        ("object edit", dict(obj_edit=json.dumps({"id": 1, "dt": [0.4, 0.2, -0.2],
+                                                  "rot": [25, -10], "scale": 1.2})), True),
+    )
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+        conn.request("GET", "/")
+        page = conn.getresponse()
+        if page.status != 200 or b"arctic_tpu viewer" not in page.read():
+            raise RuntimeError("6e viewer: / did not serve the page")
+        for name, query, rebuilds in requests:
+            cache = state.sun_cache
+            kernels.reset_launch_counts()
+            conn.request("GET", "/frame?" + urlencode(query))
+            r = conn.getresponse()
+            png = r.read()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            if r.status != 200:
+                raise RuntimeError(f"6e viewer {name}: status {r.status}")
+            stats = json.loads(r.getheader("X-Stats"))
+            k1 = 2 if rebuilds else 1
+            if counts["raster_tiles"] != k1 or (state.sun_cache is not cache) != rebuilds:
+                raise RuntimeError(f"6e viewer {name}: K1 launched {counts['raster_tiles']} "
+                                   f"times (want {k1}), sun cache rebuilt: "
+                                   f"{state.sun_cache is not cache} (want {rebuilds})")
+            want, wst = pipeline.render_frame_stats(state.buffers, state.params, state.settings,
+                                                    state.config)
+            pipeline.check_stats(wst)
+            same_frame(decode_png(png)[..., :3], want, f"6e viewer {name}",
+                       "the in-process frame of its state")
+            log(f"6e viewer {name}: PNG ({len(png)} B) bit-equal to the in-process frame; "
+                f"K1 x{counts['raster_tiles']} (sun cache {'rebuilt' if rebuilds else 'reused'}); "
+                f"{stats['ms']} ms render + download")
+        conn.request("GET", "/state")
+        st = conn.getresponse()
+        body = json.loads(st.read())
+        if st.status != 200 or body["camera"]["eye"] != state.params.camera.eye.tolist():
+            raise RuntimeError(f"6e viewer /state: status {st.status}, {body}")
+        log(f"6e viewer /state: {body['camera']}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10.0)
+
+
+def run_debug_checks(entry_img, bufs, config, frame0):
+    """6f: enable_debug_checks on the card: the entry frame and real-size
+    frame 0 bit-equal to those without the checks (phase 3's and phase 4's);
+    a NaN light colour raises FloatingPointError at the frame's inputs, a NaN
+    corner normal of a covered triangle at forward_visibility."""
+    import dataclasses
+
+    import torch
+
+    from arctic_tpu_torch.core.scene import PointLights
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.ops import raster_tiles
+    from arctic_tpu_torch.utils.errors import enable_debug_checks
+
+    def frame_ms(*args):
+        t = time.perf_counter()
+        img, _ = pipeline.render_frame_stats(*args)
+        torch.cuda.synchronize()
+        return img, (time.perf_counter() - t) * 1e3
+
+    econfig, _, ebufs, eparams, esettings = entry_scene("cuda")
+    unchecked = [frame_ms(ebufs, eparams, esettings, econfig)[1],
+                 frame_ms(bufs, *real_params(0), config)[1]]
+    enable_debug_checks()
+    try:
+        img, entry_ms = frame_ms(ebufs, eparams, esettings, econfig)
+        same_frame(img, entry_img, "6f checked entry frame", "phase 3's entry frame")
+        img, real_ms = frame_ms(bufs, *real_params(0), config)
+        same_frame(img, frame0, "6f checked real-size frame 0", "phase 4's frame 0")
+        log(f"6f debug checks: the entry frame ({entry_ms:.3f} ms; unchecked just before "
+            f"{unchecked[0]:.3f} ms) and real-size frame 0 ({real_ms:.3f} ms; unchecked "
+            f"{unchecked[1]:.3f} ms) bit-equal to the unchecked ones")
+
+        nan_params = dataclasses.replace(eparams, point_lights=PointLights.from_list(
+            [((0.0, 1.0, 0.0), (10.0, float("nan"), 0.0))]))
+        geom = ebufs.geometry
+        wc = pipeline.world_corners(geom)
+        tri_valid = torch.arange(geom.capacity, device=ebufs.device) < geom.num_tris
+        setup = pipeline.camera_setup(wc, tri_valid, eparams.camera.proj_view(), econfig)
+        _, ibuf, _ = raster_tiles.rasterize_tiled(setup, econfig.height, econfig.width, econfig)
+        slot = int(ibuf[econfig.height // 2, econfig.width // 2])
+        tri = slot % geom.capacity
+        rows = geom.slot_static_rows.clone()
+        rows[0, [tri, geom.capacity + tri]] = float("nan")  # corner 0's normal x
+        nan_bufs = dataclasses.replace(ebufs, geometry=dataclasses.replace(
+            geom, slot_static_rows=rows, tri_static_attrs=rows[0:33, : geom.capacity]))
+        for name, b, p, where in (("NaN light colour", ebufs, nan_params, "frame inputs"),
+                                  (f"NaN corner normal of triangle {tri}", nan_bufs, eparams,
+                                   "forward_visibility")):
+            try:
+                pipeline.render_frame_stats(b, p, esettings, econfig)
+            except FloatingPointError as e:
+                if not str(e).startswith(where):
+                    raise RuntimeError(f"6f {name}: raised at the wrong place: {e}") from e
+                log(f"6f {name}: FloatingPointError: {e}")
+            else:
+                raise RuntimeError(f"6f {name}: the checked frame did not raise")
+    finally:
+        enable_debug_checks(False)
+
 def once_ms(fn) -> float:
     """CUDA-event ms of one call of ``fn`` (no warm-up: for the lockstep plain
     K14, whose runs take seconds)."""
@@ -2370,7 +2807,7 @@ def main() -> int:
     lut_calls, lcounts = run_f32_table_pcf(dev, bufs, base)
     # After the real-size paths, so that each of them sees the caching
     # allocator's history of the parent's script (bytes and peaks compare).
-    run_cli()
+    cli_glb, cli_img = run_cli()
     # The deferred and brute-force frames and the opt-ins, after every
     # earlier phase for the same reason.
     bf_img = run_entry_bruteforce(oracle, entry_img)
@@ -2378,6 +2815,7 @@ def main() -> int:
     run_entry_optins()
     run_cli_flags()
     dsummary, dconfig = run_real_deferred(dev, bufs, real_imgs, profile)
+    real0 = real_imgs[0]
     del real_imgs
     osummary = run_real_optins(dev, bufs, base, dconfig, profile)
     # This slice's phases after every earlier one, so that each earlier
@@ -2407,6 +2845,26 @@ def main() -> int:
         f"grouped {gsummary['ms_per_frame_median']:.3f}, "
         f"ray-traced {rsummary['ms_per_frame_median']:.3f}, "
         f"per-slot {psummary['ms_per_frame_median']:.3f}")
+    # Sharding, the viewer and the debug checks after every earlier phase,
+    # so that each earlier path keeps its allocator history (6a-6f).
+    import tempfile
+
+    import torch.distributed as dist
+
+    from arctic_tpu_torch.parallel import sharding
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sharding.init_group("cuda", "file://" + os.path.join(tmp, "rendezvous"))
+        try:
+            run_sharded_world1()
+            slab_calls = run_slabs_entry()
+            real_slab_calls = run_real_sharded(bufs, base, real0)
+        finally:
+            dist.destroy_process_group()
+    run_cli_devices(cli_glb, cli_img, 1)
+    run_multi_card(cli_glb, cli_img)
+    run_viewer()
+    run_debug_checks(entry_img, bufs, base, real0)
     own = ("window_lut_q", "pcf_eval")
     entry_cmps = [
         compare_kernels(entry_calls, "entry", DEFAULT_PATH),
@@ -2420,6 +2878,10 @@ def main() -> int:
         compare_kernels(greal_calls, "grouped real-size", ("tile_tap_resolve",)),
         compare_kernels({"bvh_trace": rlight_calls["bvh_trace"][2:]},
                         "ray-traced real-size light rays (every ray)", RT_PATH),
+        compare_kernels(slab_calls, "6b slabs (row0 != 0 but on rank 0)",
+                        ("raster_tiles", "select_interp")),
+        compare_kernels(real_slab_calls, "6c real-size slabs (row0 != 0 but on rank 0)",
+                        ("raster_tiles", "select_interp")),
     ]
     quant = compare_kernels(qreal_calls, "quant real-size", QUANT_PATH, timed=own)
     tex = compare_kernels(treal_calls, "textured real-size", TEX_PATH, timed=("tile_tap_resolve",))

@@ -34,7 +34,12 @@ from arctic_tpu_torch.core.scene import (
 from arctic_tpu_torch.io import build, gltf_export, images, load, procedural
 from arctic_tpu_torch.models import golden, pipeline
 from arctic_tpu_torch.utils import kernels, profiling, serialize
-from arctic_tpu_torch.utils.errors import RenderError, render_guard
+from arctic_tpu_torch.utils.errors import (
+    RenderError,
+    debug_checks_enabled,
+    enable_debug_checks,
+    render_guard,
+)
 
 W, H, SHADOW = 96, 64, 96
 EYE, ROT = [0.0, 4.0, 3.0], [-25.0, -90.0]
@@ -137,14 +142,33 @@ def test_cli_config_shadow_tile_and_ignored_fields(tmp_path):
         main(["render", str(tmp_path / "missing.glb"), "--device", "cpu", "--config", str(cfg)])
 
 
+@pytest.fixture
+def debug_checks_off():
+    enable_debug_checks(False)
+    yield
+    enable_debug_checks(False)
+
+
 @pytest.mark.parametrize("argv", [
     ["--devices", "2"], ["--debug-checks"],
 ], ids=lambda a: a[0])
-def test_cli_unported_flags_raise_before_loading(tmp_path, argv):
-    """Each flag of a path the port lacks raises RenderError naming its
-    ROADMAP item before the scene is read (the path does not exist)."""
-    with pytest.raises(RenderError, match="ROADMAP"):
-        main(["render", str(tmp_path / "missing.glb"), "--device", "cpu"] + argv)
+def test_cli_sharding_and_debug_flags_render(tmp_path, argv, debug_checks_off):
+    """--devices 2 (two gloo processes on the CPU, rank 0 writing the PNG)
+    and --debug-checks render the in-process frame of the default config,
+    bit for bit; --debug-checks leaves the checks on."""
+    img = _render(["--procedural", "cornell"] + argv, tmp_path / "f.png")
+    want, _, _ = _in_process(procedural.cornell_like_scene())
+    assert img.shape == (H, W, 3) and img.std() > 10
+    np.testing.assert_array_equal(img, want)
+    assert debug_checks_enabled() == (argv[0] == "--debug-checks")
+
+
+def test_cli_devices_on_cuda_needs_the_cards(tmp_path, monkeypatch):
+    """--devices N on cuda with fewer cards raises RenderError naming both
+    counts before the scene is read (no CPU or gloo stand-in)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RenderError, match="3 ranks on cuda need 3 CUDA devices; this machine has 1"):
+        main(["render", str(tmp_path / "missing.glb"), "--devices", "3", "--device", "cuda"])
 
 
 # A spotlight over the Cornell boxes aimed down (tests/test_spotlights.py:29).
@@ -193,12 +217,12 @@ def test_config_unported_fields_raise(field):
 
 @pytest.mark.parametrize(
     "field", ["force_bruteforce", "fused_shade", "ibl_specular", "spotlights", "debug_overflow",
-              "rt_light_shadows"]
+              "rt_light_shadows", "hdr_half_round", "sun_frustum_cull"]
 )
 def test_config_ported_fields(field):
-    """Each field ported with the deferred frame and the opt-ins reaches
-    RenderConfig, off its JAX default, through config_from_dict and through
-    convert.render_config."""
+    """Each field ported with the deferred frame, the opt-ins, the f16 HDR
+    round and the sun-frustum cull reaches RenderConfig, off its JAX
+    default, through config_from_dict and through convert.render_config."""
     from arctic_tpu.core.config import RenderConfig as JRenderConfig
     from arctic_tpu_torch.utils import convert
 

@@ -167,9 +167,12 @@ def test_convert_render_config():
     # lut_y_skip changes no pixel (only table rows no window reads): accepted.
     tc = convert.render_config(JRenderConfig(pcf_row_cap=4096, lut_y_skip=False))
     assert tc.pcf_row_cap == 4096 and not hasattr(tc, "lut_y_skip")
-    for off in (dict(hdr_half_round=False), dict(sun_frustum_cull=False)):
-        with pytest.raises(RenderError, match=next(iter(off))):
-            convert.render_config(JRenderConfig(**off))
+    # The f16 HDR round and the sun-frustum cull carry over off their
+    # defaults; another shadow tile is a path the port does not have.
+    tc = convert.render_config(JRenderConfig(hdr_half_round=False, sun_frustum_cull=False))
+    assert not tc.hdr_half_round and not tc.sun_frustum_cull
+    with pytest.raises(RenderError, match="shadow_tile"):
+        convert.render_config(JRenderConfig(shadow_tile=32))
     # The grouped tile route's caps and the ray-traced light shadows carry over.
     tc = convert.render_config(JRenderConfig(tex_group_caps=(64, 32, 96), rt_light_shadows=True))
     assert tc.tex_group_caps == (64, 32, 96) and tc.rt_light_shadows

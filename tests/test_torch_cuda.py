@@ -1,7 +1,9 @@
 """arctic_tpu_torch on the card: the twelve CUDA kernels against their
 plain torch versions (K1, K3, K6, K8 and K14 also on the synthetic inputs
 of utils/synthetic.py), the ray-traced entry frame and the grouped tile
-route (K9 once a group and once for the fallback), and the entry frame, on the default path, on the
+route (K9 once a group and once for the fallback), the entry frame as 2, 3
+and 8 slabs of tile rows (parallel/sharding.py: K1 and K4 with row0 != 0),
+and the entry frame, on the default path, on the
 quantised PCF path (pcf_row_cap), on the textured path (the tile atlas,
 forced with tile_threshold_texels=0) and on the full-stack shade-row route
 (a Geometry without slot_static_rows: K10 in place of K3), against the CPU
@@ -157,6 +159,39 @@ def test_bruteforce_and_deferred_frames_match_cpu(cuda, field, value):
     d = (img.cpu().to(torch.int32) - cpu_img.to(torch.int32)).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
     assert {k: int(v) for k, v in stats.items()} == {k: int(v) for k, v in cpu_stats.items()}
+
+
+@pytest.mark.parametrize("world,pcf_row_cap", [(2, None), (3, None), (8, ROWS)])
+def test_slab_frame_equals_single_card_frame(cuda, world, pcf_row_cap):
+    """parallel/sharding.render_frame_slabs_stats on the card: the frame is
+    the single-card frame bit for bit; every rank launches K1 twice (its
+    shadow and camera slab) and K4 once, with row0 != 0 on every rank but
+    the first, and each of those calls equals the plain version."""
+    from arctic_tpu_torch.parallel import sharding
+
+    config, bufs, params, settings = _entry(cuda, pcf_row_cap)
+    single, _ = pipeline.render_frame_stats(bufs, params, settings, config)
+    kernels.reset_launch_counts()
+    with kernels.record_calls() as calls:
+        multi, stats = sharding.render_frame_slabs_stats(bufs, params, settings, config, world)
+        torch.cuda.synchronize()
+    pipeline.check_stats(stats)
+    assert torch.equal(multi, single)
+    counts = kernels.launch_counts()
+    assert counts["raster_tiles"] == 2 * world and counts["select_interp"] == world
+    layout = sharding.slab_layout(config, world)
+    assert [kw["row0"] for _, kw in calls["select_interp"]] == [
+        r * layout.cam_rows * config.tile_h for r in range(world)]
+    assert sum(kw["row0"] > 0 for _, kw in calls["raster_tiles"]) == 2 * (world - 1)
+    for name in ("raster_tiles", "select_interp"):
+        fn = next(k for k in kernels.KERNELS if k.kernel_name == name)
+        for args, kw in calls[name]:
+            got, want = fn(*args, **kw), fn.plain(*args, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                assert a is None or (a.shape == b.shape and _same(a, b))
 
 
 @pytest.mark.parametrize("name", QUANT_PATH + ("tile_tap_resolve", "transpose_pack_rows"))
