@@ -1,12 +1,13 @@
 """Ray-traced mode — torch port of arctic_tpu/models/raytrace.py.
 
-Primary rays from a BVH (ops/rt.py; K14 on the card) give visibility with
-true barycentrics; one any-hit ray per pixel toward the sun gives a hard
-shadow that, like the raster frame's PCF term, also scales the point
-lights; with ``RenderConfig.rt_light_shadows`` an any-hit ray toward each
-point light, bounded at its distance, shadows that light too. Spotlight
-cones act under ``spotlights``. Misses show the skybox; the f16 HDR round
-and the tonemap are the raster frame's. Planes are channel first.
+Primary rays from a BVH (ops/rt.py; K14 on the card, each warp on an 8 x 4
+pixel tile) give visibility with true barycentrics; one any-hit ray per
+pixel toward the sun gives a hard shadow that, like the raster frame's PCF
+term, also scales the point lights; with ``RenderConfig.rt_light_shadows``
+an any-hit ray toward each point light, bounded at its distance, shadows
+that light too. Spotlight cones act under ``spotlights``. Misses show the
+skybox; the f16 HDR round and the tonemap are the raster frame's. Planes
+are channel first.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def render_frame_rt(
     eye = params.camera.eye.tolist()
 
     origins, dirs = primary_rays(params.camera, h, w, dev)
-    hits = rt.trace(bvh, origins, _rays(dirs))
+    hits = rt.trace(bvh, origins, _rays(dirs), width=w)
     covered = (hits.tri >= 0).reshape(h, w)
     tri = torch.clamp(hits.tri, min=0).long()
     u, v = hits.u.reshape(h, w), hits.v.reshape(h, w)
@@ -96,7 +97,7 @@ def render_frame_rt(
     # Hard shadow: one any-hit ray toward the sun per pixel.
     wi_sun = -params.sun.direction().to(dev)
     shadow_org = _rays(wp + n * 1e-3)
-    occ = rt.trace(bvh, shadow_org, wi_sun.expand(h * w, 3).contiguous(), any_hit=True)
+    occ = rt.trace(bvh, shadow_org, wi_sun.expand(h * w, 3).contiguous(), any_hit=True, width=w)
     lit = torch.where((occ.tri >= 0).reshape(h, w) & covered, 0.0, 1.0)[None]
 
     wo = torch.stack([eye[i] - wp[i] for i in range(3)])
@@ -121,7 +122,7 @@ def render_frame_rt(
             # Occlusion toward the light, bounded at its distance so that
             # geometry behind the light cannot block it.
             locc = rt.trace(bvh, shadow_org, _rays(wi), t_max=dist.reshape(-1) - 2e-3,
-                            any_hit=True)
+                            any_hit=True, width=w)
             vis = torch.where((locc.tri >= 0).reshape(h, w), 0.0, 1.0)[None] * lit
         lo = lo + vis * outgoing_radiance_cf(n, wo, wi, radiance, base_color, metalness,
                                              roughness)

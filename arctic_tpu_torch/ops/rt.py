@@ -5,7 +5,10 @@ The BVH is built once on the host (median split over centroids, binary,
 LEAF_SIZE triangles a leaf) and flattened in DFS preorder with skip
 pointers: a ray needs no stack, only a node cursor that moves to
 ``node + 1`` (descend) or ``skip[node]`` (advance). Leaves run
-Moller-Trumbore over their triangles.
+Moller-Trumbore over their triangles. On the device the tree is two
+tables of records, one 32-B record a node and one 48-B record a triangle
+(``BVH.nodes``, ``BVH.tris``); the JAX package's nine arrays are views of
+them.
 
 ``trace`` launches K14 (one thread per ray walking the tree) for CUDA
 tensors; for CPU tensors it runs ``trace_plain``, the JAX package's
@@ -19,12 +22,14 @@ jnp.cross's order, with no fused multiply-add (K14 builds with
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from arctic_tpu_torch.utils import kernels
+from arctic_tpu_torch.utils.errors import RenderError
 
 LEAF_SIZE = 4
 
@@ -34,39 +39,111 @@ LEAF_SIZE = 4
 # compares), for K14's bound.
 NODE_OPS = 25
 TRI_OPS = 60
-# Bytes a node (bb_min, bb_max, first, count, skip) and a triangle (v0, e1,
-# e2, tri_id) hold, and a ray's inputs (origin, direction, t_max) and
-# outputs (t, tri, u, v).
-NODE_BYTES = 36
-TRI_BYTES = 40
+# Bytes of a node record ({bb_min.xyz, skip}, {bb_max.xyz, first << 3 |
+# count}) and of a triangle record ({v0.xyz, tri_id}, {e1.xyz, 0}, {e2.xyz,
+# 0}), and a ray's inputs (origin, direction, t_max) and outputs (t, tri, u,
+# v).
+NODE_BYTES = 32
+TRI_BYTES = 48
 RAY_BYTES = 28 + 16
+# A node record keeps first << 3 | count in one int32, so first (< the
+# triangle count) must stay below 2**28.
+TRI_LIMIT = 1 << 28
+# K14's lanes: a warp walks 32 consecutive rays, or an 8 x 4 pixel tile of
+# a row-major image (``trace``'s ``width``).
+WARP = 32
+TILE_W, TILE_H = 8, 4
+# How K14's warps take their rays (csrc/bvh_trace.cu).
+MAPPING = "8 x 4 warp tiles of an image (width > 0), persistent warps"
 
 
 @dataclass
 class BVH:
     """DFS-preorder flattened nodes (a leaf iff count > 0; skip = the next
     node in preorder that is not a descendant, -1 past the end) and the
-    triangles in leaf order."""
+    triangles in leaf order, as K14 reads them: one record a node and one a
+    triangle, int32 words (floats by their bits). ``FIELDS`` are the JAX
+    package's arrays: views of the records (``first`` and ``count``
+    decoded from their shared word). ``boxes_finite``: no box bound is NaN
+    or infinite, which lets K14 skip its NaN tests on finite rays."""
 
     FIELDS = ("bb_min", "bb_max", "first", "count", "skip", "v0", "e1", "e2", "tri_id")
 
-    bb_min: torch.Tensor  # (N, 3) f32
-    bb_max: torch.Tensor  # (N, 3) f32
-    first: torch.Tensor  # (N,) i32 first-triangle offset (leaves; 0 for inner)
-    count: torch.Tensor  # (N,) i32 0 for inner nodes
-    skip: torch.Tensor  # (N,) i32
-    v0: torch.Tensor  # (T, 3) f32
-    e1: torch.Tensor  # (T, 3) f32 (v1 - v0)
-    e2: torch.Tensor  # (T, 3) f32 (v2 - v0)
-    tri_id: torch.Tensor  # (T,) i32 original triangle index
+    nodes: torch.Tensor  # (N, 8) i32: bb_min.xyz, skip, bb_max.xyz, first << 3 | count
+    tris: torch.Tensor  # (T, 12) i32: v0.xyz, tri_id, e1.xyz (v1 - v0), 0, e2.xyz (v2 - v0), 0
+    boxes_finite: bool
+
+    @classmethod
+    def pack(cls, bb_min, bb_max, first, count, skip, v0, e1, e2, tri_id) -> BVH:
+        """The records of the nine JAX-shaped arrays (torch tensors on one
+        device): bit for bit, each field reads back from the records.
+        Raises RenderError for TRI_LIMIT triangles or more."""
+        t = v0.shape[0]
+        if t >= TRI_LIMIT:
+            raise RenderError(
+                f"{t} triangles: a BVH node record holds first << 3 | count in an int32, so "
+                f"the ray-traced mode takes fewer than 2**28 = {TRI_LIMIT} triangles")
+        i32 = torch.int32
+        nodes = torch.empty((first.shape[0], 8), dtype=i32, device=first.device)
+        nodes[:, 0:3] = bb_min.view(i32)
+        nodes[:, 3] = skip
+        nodes[:, 4:7] = bb_max.view(i32)
+        nodes[:, 7] = (first << 3) | count
+        tris = torch.zeros((t, 12), dtype=i32, device=v0.device)
+        tris[:, 0:3] = v0.view(i32)
+        tris[:, 3] = tri_id
+        tris[:, 4:7] = e1.view(i32)
+        tris[:, 8:11] = e2.view(i32)
+        finite = bool(torch.isfinite(bb_min).all()) and bool(torch.isfinite(bb_max).all())
+        return cls(nodes=nodes, tris=tris, boxes_finite=finite)
+
+    @property
+    def bb_min(self) -> torch.Tensor:  # (N, 3) f32
+        return self.nodes[:, 0:3].view(torch.float32)
+
+    @property
+    def bb_max(self) -> torch.Tensor:  # (N, 3) f32
+        return self.nodes[:, 4:7].view(torch.float32)
+
+    @property
+    def first(self) -> torch.Tensor:  # (N,) i32 first-triangle offset (leaves; 0 for inner)
+        return self.nodes[:, 7] >> 3
+
+    @property
+    def count(self) -> torch.Tensor:  # (N,) i32 0 for inner nodes
+        return self.nodes[:, 7] & 7
+
+    @property
+    def skip(self) -> torch.Tensor:  # (N,) i32
+        return self.nodes[:, 3]
+
+    @property
+    def v0(self) -> torch.Tensor:  # (T, 3) f32
+        return self.tris[:, 0:3].view(torch.float32)
+
+    @property
+    def e1(self) -> torch.Tensor:  # (T, 3) f32
+        return self.tris[:, 4:7].view(torch.float32)
+
+    @property
+    def e2(self) -> torch.Tensor:  # (T, 3) f32
+        return self.tris[:, 8:11].view(torch.float32)
+
+    @property
+    def tri_id(self) -> torch.Tensor:  # (T,) i32 original triangle index
+        return self.tris[:, 3]
 
     @property
     def num_nodes(self) -> int:
-        return self.count.shape[0]
+        return self.nodes.shape[0]
+
+    @property
+    def num_tris(self) -> int:
+        return self.tris.shape[0]
 
     @property
     def nbytes(self) -> int:
-        return sum(getattr(self, f).numel() * 4 for f in self.FIELDS)
+        return (self.nodes.numel() + self.tris.numel()) * 4
 
 
 @dataclass
@@ -131,20 +208,22 @@ def build_bvh(tris_world, device="cpu") -> BVH:
     flat = np.concatenate(leaf_tris)
     tv = t[flat]
 
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    def arr(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
 
-    return BVH(
-        bb_min=dev(np.stack([nd[0] for nd in nodes]).astype(np.float32)),
-        bb_max=dev(np.stack([nd[1] for nd in nodes]).astype(np.float32)),
-        first=dev(np.asarray([nd[2] for nd in nodes], np.int32)),
-        count=dev(np.asarray([nd[3] for nd in nodes], np.int32)),
-        skip=dev(skip),
-        v0=dev(tv[:, 0]),
-        e1=dev(tv[:, 1] - tv[:, 0]),
-        e2=dev(tv[:, 2] - tv[:, 0]),
-        tri_id=dev(flat.astype(np.int32)),
+    bvh = BVH.pack(
+        bb_min=arr(np.stack([nd[0] for nd in nodes]).astype(np.float32)),
+        bb_max=arr(np.stack([nd[1] for nd in nodes]).astype(np.float32)),
+        first=arr(np.asarray([nd[2] for nd in nodes], np.int32)),
+        count=arr(np.asarray([nd[3] for nd in nodes], np.int32)),
+        skip=arr(skip),
+        v0=arr(tv[:, 0]),
+        e1=arr(tv[:, 1] - tv[:, 0]),
+        e2=arr(tv[:, 2] - tv[:, 0]),
+        tri_id=arr(flat.astype(np.int32)),
     )
+    return BVH(nodes=bvh.nodes.to(device), tris=bvh.tris.to(device),
+               boxes_finite=bvh.boxes_finite)
 
 
 def _ray_t_max(t_max, r: int, device) -> torch.Tensor:
@@ -164,13 +243,16 @@ def _dot(a, b):
 
 
 def trace_plain(bvh: BVH, origin, direction, t_max=3.0e38, any_hit: bool = False,
-                stats: dict | None = None) -> Hits:
+                width: int = 0, stats: dict | None = None) -> Hits:
     """Plain torch K14: the JAX package's lockstep traversal (rt.py:124-190).
     Each step moves every ray still in the tree one node; rays that left it
     are dropped from the step's tensors every few steps (their state is
-    final). ``stats``, if given, receives the step's work: ``node_visits``
-    and ``tri_tests`` (the triangle tests the leaves ask for), summed over
-    the rays, and the distinct ``nodes`` / ``tris`` read."""
+    final). ``width`` (K14's lane mapping) changes no ray's result and is
+    not read. ``stats``, if given, receives the work: per ray, ``visits``
+    (nodes) and ``tests`` (the triangle tests its leaves ask for), (R,) i32
+    tensors counted on the rays' device with no host sync; their sums
+    ``node_visits`` and ``tri_tests``; the distinct ``nodes`` / ``tris``
+    read, and the lockstep ``steps``."""
     r = origin.shape[0]
     dev = origin.device
     o = [origin[:, i].contiguous() for i in range(3)]
@@ -182,18 +264,24 @@ def trace_plain(bvh: BVH, origin, direction, t_max=3.0e38, any_hit: bool = False
     v_best = torch.zeros(r, dtype=torch.float32, device=dev)
     node = torch.zeros(r, dtype=torch.int32, device=dev)
     live = torch.arange(r, device=dev)  # rays still in the tree
-    leaf_pad = bvh.v0.shape[0]
+    leaf_pad = bvh.num_tris
     bmin = [bvh.bb_min[:, i].contiguous() for i in range(3)]
     bmax = [bvh.bb_max[:, i].contiguous() for i in range(3)]
+    count, first_tri, skip, tri_id = (x.contiguous() for x in (bvh.count, bvh.first, bvh.skip,
+                                                                bvh.tri_id))
     tri_cols = {k: [getattr(bvh, k)[:, i].contiguous() for i in range(3)] for k in ("v0", "e1", "e2")}
-    visits = tests = 0
-    seen_nodes = torch.zeros(bvh.num_nodes, dtype=torch.bool, device=dev)
-    seen_tris = torch.zeros(leaf_pad, dtype=torch.bool, device=dev)
+    if stats is not None:
+        visits = torch.zeros(r, dtype=torch.int32, device=dev)
+        tests = torch.zeros(r, dtype=torch.int32, device=dev)
+        node_reads = torch.zeros(bvh.num_nodes, dtype=torch.int32, device=dev)
+        tri_reads = torch.zeros(leaf_pad, dtype=torch.int32, device=dev)
     step = 0
     while live.numel():
         # The live rays' state, gathered once per run of steps.
         lo_, ld, linv = ([x[live] for x in a] for a in (o, d, inv))
         lt, ltri, lu, lv, lnode = t_best[live], tri_best[live], u_best[live], v_best[live], node[live]
+        if stats is not None:
+            lvisits, ltests = visits[live], tests[live]
         for _ in range(16):
             active = lnode >= 0
             nidx = torch.clamp(lnode, min=0).long()
@@ -204,18 +292,18 @@ def trace_plain(bvh: BVH, origin, direction, t_max=3.0e38, any_hit: bool = False
             tn = torch.maximum(torch.maximum(near[0], near[1]), near[2])
             tf = torch.minimum(torch.minimum(far[0], far[1]), far[2])
             hit_box = active & (tf >= torch.clamp(tn, min=0.0)) & (tn < lt)
-            cnt = bvh.count[nidx]
-            first = bvh.first[nidx]
+            cnt = count[nidx]
+            first = first_tri[nidx]
             is_leaf = hit_box & (cnt > 0)
             if stats is not None:
-                visits += int(active.sum())
-                seen_nodes[nidx[active]] = True
+                lvisits += active
+                node_reads.index_add_(0, nidx, active.int())
             for k in range(LEAF_SIZE):
                 ti = torch.clamp(first + k, max=leaf_pad - 1).long()
                 ok = is_leaf & (k < cnt)
                 if stats is not None:
-                    tests += int(ok.sum())
-                    seen_tris[ti[ok]] = True
+                    ltests += ok
+                    tri_reads.index_add_(0, ti, ok.int())
                 v0, e1, e2 = ([c[ti] for c in tri_cols[key]] for key in ("v0", "e1", "e2"))
                 pvec = _cross(ld, e2)
                 det = _dot(e1, pvec)
@@ -228,21 +316,57 @@ def trace_plain(bvh: BVH, origin, direction, t_max=3.0e38, any_hit: bool = False
                 th = _dot(e2, qvec) * idet
                 ok = ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (th > 1e-5) & (th < lt)
                 lt = torch.where(ok, th, lt)
-                ltri = torch.where(ok, bvh.tri_id[ti], ltri)
+                ltri = torch.where(ok, tri_id[ti], ltri)
                 lu = torch.where(ok, u, lu)
                 lv = torch.where(ok, v, lv)
             descend = hit_box & (cnt == 0)
-            nxt = torch.where(descend, lnode + 1, bvh.skip[nidx])
+            nxt = torch.where(descend, lnode + 1, skip[nidx])
             lnode = torch.where(active, nxt, lnode)
             if any_hit:
                 lnode = torch.where(ltri >= 0, -1, lnode)
             step += 1
         t_best[live], tri_best[live], u_best[live], v_best[live], node[live] = lt, ltri, lu, lv, lnode
+        if stats is not None:
+            visits[live], tests[live] = lvisits, ltests
         live = live[lnode >= 0]
     if stats is not None:
-        stats.update(node_visits=visits, tri_tests=tests, nodes=int(seen_nodes.sum()),
-                     tris=int(seen_tris.sum()), steps=step)
+        stats.update(visits=visits, tests=tests, node_visits=int(visits.sum()),
+                     tri_tests=int(tests.sum()), nodes=int((node_reads > 0).sum()),
+                     tris=int((tri_reads > 0).sum()), steps=step)
     return Hits(t=t_best, tri=tri_best, u=u_best, v=v_best)
+
+
+def warp_rays(n_rays: int, width: int = 0, device="cpu") -> torch.Tensor:
+    """(warps, WARP) i64: the ray each lane of each K14 warp walks, -1 for
+    an idle lane. ``width`` 0: 32 consecutive rays a warp; else the rays
+    are a row-major image ``width`` wide, and each warp takes a TILE_W x
+    TILE_H pixel tile, tiles in row-major order (csrc/bvh_trace.cu's
+    ``ray_of``)."""
+    if width == 0:
+        idx = torch.arange(math.ceil(n_rays / WARP) * WARP, device=device)
+        return torch.where(idx < n_rays, idx, -1).view(-1, WARP)
+    height = _image_height(n_rays, width)
+    tiles_x = math.ceil(width / TILE_W)
+    tile = torch.arange(tiles_x * math.ceil(height / TILE_H), device=device)[:, None]
+    lane = torch.arange(WARP, device=device)
+    x = (tile % tiles_x) * TILE_W + lane % TILE_W
+    y = (tile // tiles_x) * TILE_H + lane // TILE_W
+    return torch.where((x < width) & (y < height), y * width + x, -1)
+
+
+def _image_height(n_rays: int, width: int) -> int:
+    if width < 0 or (width and n_rays % width):
+        raise ValueError(f"{n_rays} rays are no row-major image {width} wide")
+    return n_rays // width
+
+
+def lockstep_efficiency(visits: torch.Tensor, width: int = 0) -> float:
+    """Sum of the rays' node visits over 32 x the sum, over K14's warps
+    (``warp_rays``), of the warp's most: the share of lanes busy if each
+    warp walked its rays in lockstep, one node a step."""
+    lanes = warp_rays(visits.shape[0], width, visits.device)
+    per_lane = torch.where(lanes >= 0, visits[lanes.clamp(min=0)], 0)
+    return float(visits.sum()) / float(WARP * per_lane.amax(dim=1).sum())
 
 
 @kernels.kernel(
@@ -250,30 +374,40 @@ def trace_plain(bvh: BVH, origin, direction, t_max=3.0e38, any_hit: bool = False
     "arctic_tpu/ops/rt.py:124 (rt.trace's lax.while_loop; no Pallas kernel)",
     trace_plain,
 )
-def trace(bvh: BVH, origin, direction, t_max=3.0e38, any_hit: bool = False) -> Hits:
+def trace(bvh: BVH, origin, direction, t_max=3.0e38, any_hit: bool = False,
+          width: int = 0) -> Hits:
     """K14: closest-hit (or, with ``any_hit``, first-found) traversal of
     (R, 3) f32 rays. ``t_max``: a float or (R,) per-ray bound (hits need t
-    < t_max). Returns Hits (t = t_max and tri = -1 on a miss)."""
+    < t_max). ``width``: the image width when the rays are a row-major
+    image (each warp then walks an 8 x 4 pixel tile), 0 for 32 consecutive
+    rays a warp; it changes which rays walk together, not a ray's result.
+    Returns Hits (t = t_max and tri = -1 on a miss)."""
     if not origin.is_cuda:
-        return trace_plain(bvh, origin, direction, t_max, any_hit)
+        return trace_plain(bvh, origin, direction, t_max, any_hit, width)
     r = origin.shape[0]
+    if width:
+        _image_height(r, width)
     kernels.check_cuda(origin, "origin", torch.float32, (r, 3))
     kernels.check_cuda(direction, "direction", torch.float32, (r, 3))
-    n, t = bvh.num_nodes, bvh.v0.shape[0]
-    for name, shape, dtype in (("bb_min", (n, 3), torch.float32), ("bb_max", (n, 3), torch.float32),
-                               ("first", (n,), torch.int32), ("count", (n,), torch.int32),
-                               ("skip", (n,), torch.int32), ("v0", (t, 3), torch.float32),
-                               ("e1", (t, 3), torch.float32), ("e2", (t, 3), torch.float32),
-                               ("tri_id", (t,), torch.int32)):
-        kernels.check_cuda(getattr(bvh, name), name, dtype, shape)
+    kernels.check_cuda(bvh.nodes, "nodes", torch.int32, (bvh.num_nodes, 8))
+    kernels.check_cuda(bvh.tris, "tris", torch.int32, (bvh.num_tris, 12))
+    if bvh.nodes.data_ptr() % NODE_BYTES or bvh.tris.data_ptr() % 16:
+        raise ValueError("nodes / tris: K14's record loads need 32-B / 16-B aligned tables")
     tm = _ray_t_max(t_max, r, origin.device)
     out_t = torch.empty(r, dtype=torch.float32, device=origin.device)
     out_tri = torch.empty(r, dtype=torch.int32, device=origin.device)
     out_u = torch.empty(r, dtype=torch.float32, device=origin.device)
     out_v = torch.empty(r, dtype=torch.float32, device=origin.device)
-    kernels.launch("arctic_bvh_trace", bvh.bb_min, bvh.bb_max, bvh.first, bvh.count, bvh.skip,
-                   bvh.v0, bvh.e1, bvh.e2, bvh.tri_id, t, origin, direction, tm, r,
-                   int(any_hit), out_t, out_tri, out_u, out_v)
+    next_item = torch.empty(1, dtype=torch.int32, device=origin.device)
+    kernels.launch("arctic_bvh_trace", bvh.nodes, bvh.tris, bvh.num_tris, int(bvh.boxes_finite),
+                   origin, direction, tm, r, int(any_hit), width, next_item, out_t, out_tri,
+                   out_u, out_v)
     trace.launches += 1
     return Hits(t=out_t, tri=out_tri, u=out_u, v=out_v)
 
+
+def kernel_attributes(device) -> dict:
+    """K14's registers and local (spill) bytes a thread, its block size and
+    the blocks an SM holds at once, as the card's runtime reports them."""
+    regs, local, threads, blocks = kernels.query_ints("arctic_bvh_trace_attributes", device, 4)
+    return dict(registers=regs, spill_bytes=local, threads=threads, blocks_per_sm=blocks)

@@ -116,7 +116,7 @@ def bvh(jbvh, device="cpu"):
     trace one tree."""
     from arctic_tpu_torch.ops.rt import BVH
 
-    return BVH(**{f: tensor(getattr(jbvh, f), device) for f in BVH.FIELDS})
+    return BVH.pack(**{f: tensor(getattr(jbvh, f), device) for f in BVH.FIELDS})
 
 
 def scene_params(jp) -> SceneParams:

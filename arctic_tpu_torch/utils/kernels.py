@@ -54,12 +54,12 @@ _SIGNATURES = {
     "arctic_pack_shade_rows_tm": (_P, _P, _P, _I, _I, _I, _P, _P),
     "arctic_window_lut": (_P, _I, _I, _I, _P, _P),
     "arctic_pcf_resolve": (_P, _I, _P, _P, _I, _P, _P),
-    "arctic_bvh_trace": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                         _P, _P, _P, _P, _P),
+    "arctic_bvh_trace": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 # C signatures of the queries (no stream); each returns its cudaError_t.
 _QUERIES = {
     "arctic_pcf_eval_stride": (_P,),
+    "arctic_bvh_trace_attributes": (_P,),
 }
 
 # Every registered kernel wrapper, in registration order.
@@ -158,12 +158,18 @@ def launch(name: str, *args) -> None:
 def query_int(name: str, device) -> int:
     """The int that query ``name`` (``int name(int* out)``) gives on
     ``device``; raise on a CUDA error."""
-    out = ctypes.c_int(0)
+    return query_ints(name, device, 1)[0]
+
+
+def query_ints(name: str, device, n: int, *args) -> list[int]:
+    """The ``n`` ints that query ``name`` (``int name(args..., int* out)``)
+    writes on ``device``; raise on a CUDA error."""
+    out = (ctypes.c_int * n)()
     lib = library()
     with torch.cuda.device(device):
-        code = getattr(lib, name)(ctypes.byref(out))
+        code = getattr(lib, name)(*args, out)
     _raise_on_error(lib, name, code)
-    return out.value
+    return list(out)
 
 
 def _raise_on_error(lib, what: str, code: int) -> None:

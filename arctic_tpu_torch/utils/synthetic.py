@@ -40,7 +40,12 @@ walk must get right: axis-parallel directions and components below the
 1e-20 clamp, rays through the boxes' shared edges and corners and along
 their faces, origins inside node boxes and on surfaces, the coplanar
 duplicates (the first in leaf order wins), per-ray t_max of 0, inf, 2
-and 5 (some hits nearer, some farther), and an empty scene.
+and 5 (some hits nearer, some farther), an empty scene, a camera's
+primary rays as a row-major IMAGE_W x IMAGE_H image (``width`` passed:
+K14's 8 x 4 warp tiles, ragged in both directions, and a ray count that is
+no multiple of 32), rays with NaN and infinite components among finite
+ones, and a scene with an infinite vertex (boxes that are not finite: K14
+keeps its NaN tests there).
 """
 
 from __future__ import annotations
@@ -346,7 +351,10 @@ def k8_inputs(device, rows_used: int, seed: int = 0, order_len: int = K8_ORDER_L
     return args, {}
 
 
-K14_CASES = ("axis", "grazing", "inside", "coplanar", "t_max", "empty")
+K14_CASES = ("axis", "grazing", "inside", "coplanar", "t_max", "empty", "image",
+             "nonfinite_rays", "nonfinite_scene")
+# The "image" case: 851 pixels, no multiple of a warp or of its 8 x 4 tile.
+IMAGE_W, IMAGE_H = 37, 23
 
 
 def k14_scene() -> np.ndarray:
@@ -413,6 +421,26 @@ def k14_rays(case: str, seed: int = 0, n: int = 1000):
         tris = np.zeros((0, 3, 3), np.float32)
         o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
         d = _unit(rng.normal(0, 1, (n, 3)))
+    elif case in ("nonfinite_rays", "nonfinite_scene"):
+        o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+        d = _unit(rng.normal(0, 1, (n, 3)))
+        if case == "nonfinite_scene":  # a triangle with a vertex at +inf in y
+            far = np.asarray([[[-1.0, 0.5, -2.0], [1.0, 0.5, -2.0], [0.0, np.inf, -2.0]]],
+                             np.float32)
+            tris = np.concatenate([tris, far])
+        else:
+            k = n // 8
+            o[:k, 0] = np.nan
+            d[k : 2 * k, 1] = np.inf
+            d[2 * k : 3 * k, 2] = -np.inf
+            d[3 * k : 4 * k, 0] = np.nan
+            o[4 * k : 5 * k, 2] = -np.inf
+    elif case == "image":  # a pinhole at (1, 1.5, 8) looking down -z, rows top to bottom
+        x = ((np.arange(IMAGE_W) + 0.5) / IMAGE_W * 2.0 - 1.0) * 0.6 * IMAGE_W / IMAGE_H
+        y = ((np.arange(IMAGE_H) + 0.5) / IMAGE_H * 2.0 - 1.0) * -0.6 - 0.15
+        px, py = np.meshgrid(x, y)
+        d = _unit(np.stack([px, py, -np.ones_like(px)], -1).reshape(-1, 3))
+        o = np.broadcast_to(np.asarray([1.0, 1.5, 8.0], np.float32), d.shape).copy()
     else:
         raise KeyError(case)
     return tris, o, d, t_max
@@ -420,7 +448,8 @@ def k14_rays(case: str, seed: int = 0, n: int = 1000):
 
 def k14_inputs(device, case: str, any_hit: bool, seed: int = 0):
     """One K14 call's (args, kwargs) for ``case`` on ``device``: (bvh,
-    origin, direction, t_max, any_hit)."""
+    origin, direction, t_max, any_hit), and the image's ``width`` for the
+    "image" case."""
     import torch
 
     from arctic_tpu_torch.ops.rt import build_bvh
@@ -428,6 +457,7 @@ def k14_inputs(device, case: str, any_hit: bool, seed: int = 0):
     tris, o, d, t_max = k14_rays(case, seed)
     if not np.isscalar(t_max):
         t_max = torch.from_numpy(t_max).to(device)
-    return (build_bvh(tris, device=device), torch.from_numpy(o).to(device),
-            torch.from_numpy(d).to(device), t_max, any_hit), {}
+    return ((build_bvh(tris, device=device), torch.from_numpy(o).to(device),
+             torch.from_numpy(d).to(device), t_max, any_hit),
+            {"width": IMAGE_W} if case == "image" else {})
 

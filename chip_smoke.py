@@ -195,13 +195,18 @@ which raises on failure (exit code != 0):
    list of several passes of K8's grid with rows_used just below and just
    above a multiple of its stride; K14 on axis-parallel and sub-clamp
    directions, grazing edges and faces, origins inside boxes, coplanar
-   duplicates, per-ray t_max of 0 and inf, and an empty scene),
-   bit-exact against their plain versions. K14's bound counts the node
-   visits and triangle tests the plain version reports on every 64th ray,
-   scaled to all rays. The real-size quad width and
-   K8's live / listed rows are printed, and the share of the quantised
-   frame 0's warps that take K8's fast selects, with K8's time on the same
-   inputs when no warp takes them.
+   duplicates, per-ray t_max of 0 and inf, an empty scene, a 37 x 23
+   camera image on K14's 8 x 4 warp tiles, NaN / inf ray components and a
+   scene with an infinite vertex), bit-exact against their plain versions.
+   K14's bound counts the node visits and triangle tests the plain version
+   reports on every 64th ray, scaled to all rays; on the real-size primary
+   and sun calls K14 is also timed and held bit-exact in linear order
+   (width 0), and the plain run's per-ray visits give the warps' lockstep
+   efficiency under both mappings; K14's registers, spill bytes and block
+   size are printed and join its kernels-line entry. The real-size quad
+   width and K8's live / listed rows are printed, and the share of the
+   quantised frame 0's warps that take K8's fast selects, with K8's time on
+   the same inputs when no warp takes them.
 
 The wall seconds of the whole run are printed before the last two lines.
 The second-to-last line is {"kernels": [...]}; the last line is
@@ -1760,7 +1765,7 @@ def rt_visibility(label, bufs, bvh, config, params, h, w, device):
 
     origins, dirs = raytrace.primary_rays(params.camera, h, w, device)
     rays = dirs.reshape(3, -1).T.contiguous()
-    hits = rt.trace(bvh, origins, rays)
+    hits = rt.trace(bvh, origins, rays, width=w)
     tri = hits.tri
     geom = bufs.geometry
     world = pipeline.world_triangles(geom)
@@ -2300,29 +2305,53 @@ def k14_timing(real_calls, work_stats) -> dict:
     read: a lower bound of what all rays read) over the HBM rate and the
     f32 operations of the node visits and triangle tests over the f32
     rate. The timed plain run's hits hold K14's on every ray of each call
-    bit-exact."""
+    bit-exact, on the image's 8 x 4 warp tiles the frame passes (``width``)
+    and in linear order (width 0, also timed); its per-ray node visits give
+    the warps' lockstep efficiency under both mappings
+    (rt.lockstep_efficiency). K14's registers, spill bytes and block size
+    come from the card's runtime."""
+    import torch
+
     from arctic_tpu_torch.ops import rt
 
-    ms = plain_ms = t_bytes = t_ops = 0.0
+    ms = linear_ms = plain_ms = t_bytes = t_ops = 0.0
+    lockstep = {"linear": [], "tiles": []}
     for (args, kw), (n_rays, st) in zip(real_calls["bvh_trace"], work_stats):
+        linear = {**kw, "width": 0}
         ms += cuda_ms(lambda: rt.trace(*args, **kw), 10)
-        plain = []
-        plain_ms += once_ms(lambda: plain.append(rt.trace_plain(*args, **kw)))
-        for a, b in zip(_tensors(rt.trace(*args, **kw)), _tensors(plain[0])):
-            if max_abs_diff(a, b) != 0.0:
-                raise RuntimeError(f"real size: bvh_trace differs from its plain version on "
-                                   f"{n_rays} rays (max {max_abs_diff(a, b)})")
+        linear_ms += cuda_ms(lambda: rt.trace(*args, **linear), 10)
+        plain, full = [], {}
+        plain_ms += once_ms(lambda: plain.append(rt.trace_plain(*args, **kw, stats=full)))
+        for got in (rt.trace(*args, **kw), rt.trace(*args, **linear)):
+            for a, b in zip(_tensors(got), _tensors(plain[0])):
+                if max_abs_diff(a, b) != 0.0:
+                    raise RuntimeError(f"real size: bvh_trace differs from its plain version on "
+                                       f"{n_rays} rays (max {max_abs_diff(a, b)})")
+        lockstep["linear"].append(rt.lockstep_efficiency(full["visits"]))
+        lockstep["tiles"].append(rt.lockstep_efficiency(full["visits"], kw["width"]))
         nbytes = rt.RAY_BYTES * n_rays + rt.NODE_BYTES * st["nodes"] + rt.TRI_BYTES * st["tris"]
         ops = K14_SAMPLE * (rt.NODE_OPS * st["node_visits"] + rt.TRI_OPS * st["tri_tests"])
         t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
         t_ops += ops / F32_OPS_PER_S * 1e3
+        log(f"K14 real-size call of {n_rays} rays (width {kw['width']}, any_hit "
+            f"{kw.get('any_hit', False)}): {full['node_visits']} node visits, {full['tri_tests']} "
+            f"triangle tests on all rays (longest ray {int(full['visits'].max())} visits); "
+            f"lockstep efficiency linear {lockstep['linear'][-1]:.4f}, 8 x 4 tiles "
+            f"{lockstep['tiles'][-1]:.4f}")
+    attrs = rt.kernel_attributes(torch.device("cuda"))
     out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               extra=dict(registers=attrs["registers"], spill_bytes=attrs["spill_bytes"],
+                          block=attrs["threads"], blocks_per_sm=attrs["blocks_per_sm"],
+                          mapping=rt.MAPPING, linear_ms=linear_ms,
+                          lockstep_linear=lockstep["linear"], lockstep_kept=lockstep["tiles"]))
     log(f"K14 per ray-traced frame (primary + sun rays, real size): bit-exact vs plain on every "
-        f"ray; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}; bytes "
-        f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms, counted on every {K14_SAMPLE}th ray and "
-        f"scaled), share {out['bound_ms'] / ms:.2%}")
+        f"ray in both mappings; kernel {ms:.4f} ms ({rt.MAPPING}), linear order "
+        f"{linear_ms:.4f} ms, plain {plain_ms:.4f} ms (counting each ray's work), bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}; bytes {t_bytes:.4f} ms, operations "
+        f"{t_ops:.4f} ms, counted on every {K14_SAMPLE}th ray and scaled), share "
+        f"{out['bound_ms'] / ms:.2%}; {attrs['registers']} registers and {attrs['spill_bytes']} "
+        f"spill bytes a thread, {attrs['threads']}-thread blocks, {attrs['blocks_per_sm']} a SM")
     return out
 
 
@@ -2936,7 +2965,7 @@ def main() -> int:
             max_abs_err=max(c[name]["max_abs_err"] for c in cmps
                             if name in c and "max_abs_err" in c[name]),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=library.get(name),
+            bound_by=t["bound_by"], library_ms=library.get(name), **t.get("extra", {}),
         ))
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

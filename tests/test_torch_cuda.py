@@ -501,14 +501,42 @@ def test_k14_equals_plain_on_synthetic_inputs(cuda, case, any_hit):
     lockstep plain version on the card and on the CPU."""
     from arctic_tpu_torch.ops import rt
 
-    (bvh, o, d, t_max, _), _ = synthetic.k14_inputs(cuda, case, any_hit)
+    (bvh, o, d, t_max, _), kw = synthetic.k14_inputs(cuda, case, any_hit)
     kernels.reset_launch_counts()
-    got = rt.trace(bvh, o, d, t_max, any_hit)
+    got = rt.trace(bvh, o, d, t_max, any_hit, **kw)
     torch.cuda.synchronize()
     assert rt.trace.launches == 1
     assert _hits_same(got, rt.trace_plain(bvh, o, d, t_max, any_hit))
     (cbvh, co, cd, ct, _), _ = synthetic.k14_inputs("cpu", case, any_hit)
     assert _hits_same([x.cpu() for x in got], rt.trace_plain(cbvh, co, cd, ct, any_hit))
+
+
+@pytest.mark.parametrize("per_ray_t_max", [False, True], ids=["t_max", "per_ray_t_max"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_k14_equals_plain_on_image_rays(cuda, any_hit, per_ray_t_max):
+    """K14 on utils/synthetic.py's 37 x 23 camera image (neither side a
+    multiple of the 8 x 4 warp tile, 851 rays: no multiple of 32), with a
+    float or a per-ray t_max: bit-exact against the plain version on the
+    image's tiles and in linear order, three launches in a row on one
+    stream (each persistent grid's work counter starts again at 0)."""
+    from arctic_tpu_torch.ops import rt
+
+    (bvh, o, d, t_max, _), kw = synthetic.k14_inputs(cuda, "image", any_hit)
+    assert kw == {"width": synthetic.IMAGE_W} and o.shape[0] % rt.WARP
+    if per_ray_t_max:
+        rng = np.random.default_rng(5)
+        t_max = torch.from_numpy(rng.choice(np.asarray([0.0, 4.0, 8.0, 9.5, np.inf], np.float32),
+                                            o.shape[0])).to(cuda)
+    want = rt.trace_plain(bvh, o, d, t_max, any_hit)
+    assert bool((want.tri >= 0).any()) and bool((want.tri < 0).any())
+    kernels.reset_launch_counts()
+    runs = [rt.trace(bvh, o, d, t_max, any_hit, width=w) for w in (synthetic.IMAGE_W, 0,
+                                                                   synthetic.IMAGE_W)]
+    torch.cuda.synchronize()
+    assert rt.trace.launches == 3
+    assert all(_hits_same(got, want) for got in runs)
+    with pytest.raises(ValueError, match="image"):
+        rt.trace(bvh, o, d, t_max, any_hit, width=synthetic.IMAGE_W + 1)
 
 
 def test_rt_entry_frame_matches_cpu(cuda):

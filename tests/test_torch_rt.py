@@ -248,13 +248,13 @@ def _walk(bvh, o, d, t_max, any_hit):
 def test_trace_plain_synthetic(case, any_hit):
     """utils/synthetic.py's K14 rays (axis-parallel and sub-clamp directions,
     grazing edges and faces, origins inside boxes, coplanar duplicates,
-    per-ray t_max, the empty scene): the lockstep plain version equals a
+    per-ray t_max, the empty scene, a camera's image): the lockstep plain version equals a
     per-ray walk (K14's order) bit for bit on every ray, and finds JAX's
     triangles but on the grazing rays, whose edge and face hits XLA's FMA
     contraction decides the other way on some rays."""
     tris, o, d, t_max = synthetic.k14_rays(case)
-    (bvh, to, td, tt, _), _ = synthetic.k14_inputs("cpu", case, any_hit)
-    th = rt.trace(bvh, to, td, tt, any_hit)  # CPU tensors: the plain version, no launch
+    (bvh, to, td, tt, _), kw = synthetic.k14_inputs("cpu", case, any_hit)
+    th = rt.trace(bvh, to, td, tt, any_hit, **kw)  # CPU tensors: the plain version, no launch
     tm = np.broadcast_to(np.float32(t_max), (len(o),))
     walk = [_walk(bvh, o[i], d[i], tm[i], any_hit) for i in range(0, len(o), 3)]
     for name, got, want in zip(("t", "tri", "u", "v"), th, zip(*walk)):
@@ -289,6 +289,112 @@ def test_trace_plain_counts_its_work():
     rt.trace_plain(bvh, o, d, t, any_hit, stats=stats)
     assert stats["node_visits"] >= o.shape[0] and stats["tri_tests"] > 0
     assert 0 < stats["nodes"] <= bvh.num_nodes and 0 < stats["tris"] <= bvh.v0.shape[0]
+    visits, tests = stats["visits"], stats["tests"]
+    assert visits.shape == tests.shape == (o.shape[0],)
+    assert visits.dtype == tests.dtype == torch.int32
+    assert int(visits.sum()) == stats["node_visits"] and int(tests.sum()) == stats["tri_tests"]
+    assert int(visits.min()) >= 1 and int(visits.max()) <= stats["steps"]
+    assert int(tests.max()) <= rt.LEAF_SIZE * int(visits.max())
+
+
+def _soup(n, seed=0):
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-10, 10, (n, 1, 3))
+    return (centres + rng.normal(0, 0.5, (n, 3, 3))).astype(np.float32)
+
+
+def _short_last_leaf():
+    """Nine triangles: leaves of 4, 2 and 3 in preorder, the last short."""
+    tris = _soup(9, seed=3)
+    count = rt.build_bvh(tris).count.numpy()
+    assert 0 < count[count > 0][-1] < rt.LEAF_SIZE
+    return tris
+
+
+def _records_scene(scene):
+    """(port BVH, JAX BVH) of one scene for the record tests."""
+    if scene in ("cornell", "per_slot"):
+        meshes, objects, materials, env = procedural.cornell_like_scene()
+        if scene == "per_slot":
+            materials = procedural.per_slot_materials(materials)
+        jb = jbuild.build_buffers(meshes, objects, materials, env, tri_bucket=256)
+        tb = build.build_buffers(meshes, objects, materials, env, tri_bucket=256, device="cpu")
+        return raytrace.build_scene_bvh(tb), jraytrace.build_scene_bvh(jb)
+    tris = {"soup": lambda: _soup(2000), "empty": lambda: np.zeros((0, 3, 3), np.float32),
+            "short_last_leaf": _short_last_leaf,
+            "infinite_vertex": lambda: synthetic.k14_rays("nonfinite_scene")[0]}[scene]()
+    return rt.build_bvh(tris), jrt.build_bvh(tris)
+
+
+@pytest.mark.parametrize("scene", ["soup", "cornell", "per_slot", "empty", "short_last_leaf",
+                                   "infinite_vertex"])
+def test_packed_records_decode_to_the_jax_arrays(scene):
+    """K14's records, decoded here with numpy from their words, are the JAX
+    package's nine arrays bit for bit; the padding words are 0; packing
+    JAX's arrays (utils/convert.bvh) gives the same records; boxes_finite
+    says whether every box bound is finite."""
+    tb, jb = _records_scene(scene)
+    assert tb.boxes_finite == (scene != "infinite_vertex")
+    nodes, tris = tb.nodes.numpy(), tb.tris.numpy()
+    assert nodes.dtype == tris.dtype == np.int32
+    assert nodes.shape == (tb.num_nodes, rt.NODE_BYTES // 4)
+    assert tris.shape == (tb.num_tris, rt.TRI_BYTES // 4)
+    decoded = {
+        "bb_min": nodes[:, 0:3].view(np.float32), "skip": nodes[:, 3],
+        "bb_max": nodes[:, 4:7].view(np.float32), "first": nodes[:, 7] >> 3,
+        "count": nodes[:, 7] & 7, "v0": tris[:, 0:3].view(np.float32), "tri_id": tris[:, 3],
+        "e1": tris[:, 4:7].view(np.float32), "e2": tris[:, 8:11].view(np.float32),
+    }
+    for f in rt.BVH.FIELDS:
+        want = np.asarray(getattr(jb, f))
+        assert decoded[f].dtype == want.dtype, f
+        np.testing.assert_array_equal(decoded[f].view(np.int32), want.view(np.int32), err_msg=f)
+    assert (tris[:, 7] == 0).all() and (tris[:, 11] == 0).all()
+    packed = convert.bvh(jb)
+    assert torch.equal(packed.nodes, tb.nodes) and torch.equal(packed.tris, tb.tris)
+    assert packed.boxes_finite == tb.boxes_finite
+    assert tb.nbytes == tb.num_nodes * rt.NODE_BYTES + tb.num_tris * rt.TRI_BYTES
+
+
+def test_pack_refuses_the_first_limit():
+    """first << 3 | count is one int32: 2**28 triangles raise RenderError
+    (stride-0 inputs: nothing of that size is allocated)."""
+    tri = torch.zeros(1, 3).expand(rt.TRI_LIMIT, 3)
+    node = torch.zeros(1, 3).expand(1, 3)
+    one = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(RenderError, match=r"2\*\*28"):
+        rt.BVH.pack(node, node, one, one + 1, one - 1, tri, tri, tri,
+                    torch.zeros(1, dtype=torch.int32).expand(rt.TRI_LIMIT))
+
+
+def test_warp_rays_cover_every_ray_once():
+    """K14's lane mappings: each ray of a 37 x 23 image once, idle lanes
+    -1; an 8 x 4 tile's lanes row-major in the tile."""
+    for width in (0, 37):
+        lanes = rt.warp_rays(37 * 23, width)
+        assert lanes.shape[1] == rt.WARP
+        live = lanes[lanes >= 0]
+        assert torch.equal(live.sort().values, torch.arange(37 * 23))
+    lanes = rt.warp_rays(37 * 23, 37)
+    assert lanes.shape[0] == 5 * 6  # ceil(37 / 8) x ceil(23 / 4) tiles
+    assert lanes[0].tolist() == [y * 37 + x for y in range(4) for x in range(8)]
+    assert (lanes[4] >= 0).sum() == 5 * 4  # the last tile of a row: 5 columns
+    with pytest.raises(ValueError, match="image"):
+        rt.warp_rays(100, 37)
+
+
+def test_lockstep_efficiency_by_hand():
+    """Equal visits give 1.0 under both mappings; one long lane in a warp
+    gives (its visits + the rest) / 32 x (its visits + the other warp's)."""
+    visits = torch.full((64,), 7, dtype=torch.int32)
+    assert rt.lockstep_efficiency(visits) == 1.0
+    assert rt.lockstep_efficiency(visits, 8) == 1.0
+    visits[5] = 39
+    assert rt.lockstep_efficiency(visits) == (63 * 7 + 39) / (32 * (39 + 7))
+    # The image 16 wide: ray 5 (x = 5, y = 0) is in the first 8 x 4 tile.
+    assert rt.lockstep_efficiency(visits, 16) == (63 * 7 + 39) / (32 * (39 + 7))
+    # Idle lanes count as no visits: 40 rays, one warp full and one of 8.
+    assert rt.lockstep_efficiency(torch.ones(40, dtype=torch.int32)) == 40 / 64
 
 
 def _params(lights):
