@@ -4,9 +4,9 @@ arctic_tpu/ops/raster_tiles.py around five CUDA kernels:
 - K1 ``raster_tiles``    (csrc/raster_tiles.cu) for _raster_kernel, with
   _pack16_kernel + _phase_resolve_kernel folded into its row load;
 - K3 ``pack_shade_rows`` (csrc/pack_shade_rows.cu) for _pack_shade_rows_kernel;
-- K11 ``pack_shade_rows_tm`` (csrc/pack_shade_rows_tm.cu) for
-  _pack_shade_rows_tm_kernel: K3 with tri-major corner planes (no frame
-  calls it, as in the JAX package);
+- K11 ``pack_shade_rows_tm`` (csrc/pack_shade_rows.cu, the other
+  instantiation of K3's kernel template) for _pack_shade_rows_tm_kernel: K3
+  with tri-major corner planes (no frame calls it, as in the JAX package);
 - K10 ``transpose_pack_rows`` (csrc/transpose_pack_rows.cu) for
   _transpose_pack_kernel: the full-stack shade-row build's transpose;
 - K4 ``select_interp``   (csrc/select_interp.cu) for _select_kernel.
@@ -250,7 +250,7 @@ def pack_shade_rows_tm_plain(pf: torch.Tensor, tri: torch.Tensor, st: torch.Tens
 
 
 @kernels.kernel(
-    "pack_shade_rows_tm", "arctic_tpu_torch/csrc/pack_shade_rows_tm.cu",
+    "pack_shade_rows_tm", "arctic_tpu_torch/csrc/pack_shade_rows.cu",
     "arctic_tpu/ops/raster_tiles.py:275 (_pack_shade_rows_tm_kernel)",
     pack_shade_rows_tm_plain,
 )

@@ -404,10 +404,3 @@ def trace(bvh: BVH, origin, direction, t_max=3.0e38, any_hit: bool = False,
                    out_u, out_v)
     trace.launches += 1
     return Hits(t=out_t, tri=out_tri, u=out_u, v=out_v)
-
-
-def kernel_attributes(device) -> dict:
-    """K14's registers and local (spill) bytes a thread, its block size and
-    the blocks an SM holds at once, as the card's runtime reports them."""
-    regs, local, threads, blocks = kernels.query_ints("arctic_bvh_trace_attributes", device, 4)
-    return dict(registers=regs, spill_bytes=local, threads=threads, blocks_per_sm=blocks)

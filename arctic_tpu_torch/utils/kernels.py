@@ -60,6 +60,8 @@ _SIGNATURES = {
 _QUERIES = {
     "arctic_pcf_eval_stride": (_P,),
     "arctic_bvh_trace_attributes": (_P,),
+    "arctic_pack_shade_rows_attributes": (_P,),
+    "arctic_pack_shade_rows_tm_attributes": (_P,),
 }
 
 # Every registered kernel wrapper, in registration order.
@@ -170,6 +172,14 @@ def query_ints(name: str, device, n: int, *args) -> list[int]:
         code = getattr(lib, name)(*args, out)
     _raise_on_error(lib, name, code)
     return list(out)
+
+
+def attributes(query: str, device) -> dict:
+    """One kernel's registers and local (spill) bytes a thread, its block
+    size and the blocks an SM holds at once, as the card's runtime reports
+    them through attribute query ``query`` (four ints)."""
+    regs, local, threads, blocks = query_ints(query, device, 4)
+    return dict(registers=regs, spill_bytes=local, block=threads, blocks_per_sm=blocks)
 
 
 def _raise_on_error(lib, what: str, code: int) -> None:

@@ -18,6 +18,12 @@ the tile's sides.
 K3: random planes (NaN and +-inf included) over a slot count that is not a
 multiple of the kernel's 32-slot block.
 
+K11: the same random planes split as K11 reads them (24 slot-major rows,
+18 tri-major rows over cap triangles), at slot counts and capacities where
+the wrap at slot cap falls inside a 32-slot block, where N > 2 * cap (a
+zero tail), N < 2 * cap and N < cap, N < 32 with cap = 1, and cap a multiple
+of 32; p at 0, N, 2 * cap and 2 * cap + 1.
+
 K6: at every quad width the wrapper takes (c4 = 4, 8, ..., 48), every
 texture quad (tq in [0, 128 // c4)) and env quad (eq in [0, 8)), over bf16
 rows that hold NaN, +-Inf, +-0 and subnormal patterns, for a pixel count
@@ -218,6 +224,14 @@ def k1_tiles(device, tile_h: int, tile_w: int, depth_only: bool = False, seed: i
     return args, {"depth_only": depth_only}
 
 
+def _odd_planes(rng, shape) -> np.ndarray:
+    """Standard normal f32 planes with 0.1% of the values NaN or +-inf."""
+    planes = rng.standard_normal(shape).astype(np.float32)
+    odd = rng.uniform(size=planes.shape) < 1e-3
+    planes[odd] = np.array([np.nan, np.inf, -np.inf], np.float32)[rng.integers(0, 3, int(odd.sum()))]
+    return planes
+
+
 def k3_ragged(device, seed: int = 0, n: int | None = None):
     """K3's (pf (48, N), st (56, N), p) with N not a multiple of 32 (random
     in [1000, 100000) unless given) and p < N; 0.1% of the values NaN or
@@ -226,12 +240,31 @@ def k3_ragged(device, seed: int = 0, n: int | None = None):
     if n is None:
         n = int(rng.integers(1000, 100000))
         n += 0 if n % 32 else 13
-    planes = rng.standard_normal((104, n)).astype(np.float32)
-    odd = rng.uniform(size=planes.shape) < 1e-3
-    planes[odd] = np.array([np.nan, np.inf, -np.inf], np.float32)[rng.integers(0, 3, int(odd.sum()))]
+    planes = _odd_planes(rng, (104, n))
     p = int(rng.integers(n // 2, n))
     t = torch.from_numpy(planes).to(device)
     return t[:48].contiguous(), t[48:].contiguous(), p
+
+
+# K11: case -> (N slots, cap triangles, p clip slots).
+K11_CASES = {
+    "wrap": (2 * 1013, 1013, 2 * 1013),  # cap % 32 = 21: slot cap inside a block; the frame's p
+    "tail": (2 * 777 + 101, 777, 2 * 777 + 1),  # N > 2 * cap: zero tail; the JAX package's p
+    "short": (1300, 900, 1300),  # cap < N < 2 * cap, p = N
+    "under_cap": (333, 500, 0),  # N < cap: no slot reads a second copy; p = 0
+    "tiny": (19, 1, 3),  # N < 32 and cap = 1: one ragged block, slots 0 and 1 dup'd
+    "aligned": (2 * 1024 + 45, 1024, 2 * 1024),  # cap % 32 = 0, a zero tail
+}
+
+
+def k11_inputs(device, case: str, seed: int = 0):
+    """K11's (pf (24, N), tri (18, cap), st (56, N), p) for one of
+    K11_CASES; 0.1% of the values NaN or +-inf."""
+    n, cap, p = K11_CASES[case]
+    rng = np.random.default_rng(seed)
+    pf, tri, st = (torch.from_numpy(_odd_planes(rng, shape)).to(device)
+                   for shape in ((24, n), (18, cap), (56, n)))
+    return pf, tri, st, p
 
 
 # K6: table rows, pixels, and the bf16 bit patterns planted in the rows:

@@ -185,13 +185,16 @@ which raises on failure (exit code != 0):
    library call that computes their function. K11 runs on the default
    frame's own K3 planes (split slot-major / tri-major) and must equal K3's
    table; K13 on the quantised frame 0's K7 table and listed penumbra rows,
-   and _tap_count over its planes must equal K8's counts. K1, K3, K6 and
-   K8 also run on utils/synthetic.py's inputs (a 20,480-pair tile with
+   and _tap_count over its planes must equal K8's counts. K1, K3, K6, K8
+   and K11 also run on utils/synthetic.py's inputs (a 20,480-pair tile with
    ties, duplicates, slivers, z = +-0 and NaN planes; the same planes on a
    depth-only 4000^2 grid; a slot count that is not a multiple of K3's
-   block; K6 at every quad width it takes over NaN / Inf / +-0 / subnormal
-   bf16 lanes; K8 on a map whose table pitch is s + 4, windows at the last
-   column and row, rows_used at 0, below and at the list's length, and a
+   block; K11 where slot cap falls inside a block, with a zero tail past
+   2 * cap, with N < 2 * cap, N < cap, N < 32 at cap = 1 and cap a multiple
+   of 32, p at 0, N, 2 * cap and 2 * cap + 1; K6 at every quad width it
+   takes over NaN / Inf / +-0 / subnormal bf16 lanes; K8 on a map whose
+   table pitch is s + 4, windows at the last column and row, rows_used at
+   0, below and at the list's length, and a
    list of several passes of K8's grid with rows_used just below and just
    above a multiple of its stride; K14 on axis-parallel and sub-clamp
    directions, grazing edges and faces, origins inside boxes, coplanar
@@ -202,8 +205,11 @@ which raises on failure (exit code != 0):
    reports on every 64th ray, scaled to all rays; on the real-size primary
    and sun calls K14 is also timed and held bit-exact in linear order
    (width 0), and the plain run's per-ray visits give the warps' lockstep
-   efficiency under both mappings; K14's registers, spill bytes and block
-   size are printed and join its kernels-line entry. The real-size quad
+   efficiency under both mappings. The registers, spill bytes, block size
+   and blocks a SM of K3, K11 (the two instantiations of one kernel
+   template) and K14 are printed and join their kernels-line entries, and
+   after the build every kernel function's registers, local bytes and SASS
+   instructions (cuobjdump) are printed. The real-size quad
    width and K8's live / listed rows are printed, and the share of the
    quantised frame 0's warps that take K8's fast selects, with K8's time on
    the same inputs when no warp takes them.
@@ -2313,6 +2319,7 @@ def k14_timing(real_calls, work_stats) -> dict:
     import torch
 
     from arctic_tpu_torch.ops import rt
+    from arctic_tpu_torch.utils import kernels
 
     ms = linear_ms = plain_ms = t_bytes = t_ops = 0.0
     lockstep = {"linear": [], "tiles": []}
@@ -2338,12 +2345,10 @@ def k14_timing(real_calls, work_stats) -> dict:
             f"triangle tests on all rays (longest ray {int(full['visits'].max())} visits); "
             f"lockstep efficiency linear {lockstep['linear'][-1]:.4f}, 8 x 4 tiles "
             f"{lockstep['tiles'][-1]:.4f}")
-    attrs = rt.kernel_attributes(torch.device("cuda"))
+    attrs = kernels.attributes("arctic_bvh_trace_attributes", torch.device("cuda"))
     out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               extra=dict(registers=attrs["registers"], spill_bytes=attrs["spill_bytes"],
-                          block=attrs["threads"], blocks_per_sm=attrs["blocks_per_sm"],
-                          mapping=rt.MAPPING, linear_ms=linear_ms,
+               extra=dict(**attrs, mapping=rt.MAPPING, linear_ms=linear_ms,
                           lockstep_linear=lockstep["linear"], lockstep_kept=lockstep["tiles"]))
     log(f"K14 per ray-traced frame (primary + sun rays, real size): bit-exact vs plain on every "
         f"ray in both mappings; kernel {ms:.4f} ms ({rt.MAPPING}), linear order "
@@ -2351,7 +2356,7 @@ def k14_timing(real_calls, work_stats) -> dict:
         f"{out['bound_ms']:.4f} ms ({out['bound_by']}; bytes {t_bytes:.4f} ms, operations "
         f"{t_ops:.4f} ms, counted on every {K14_SAMPLE}th ray and scaled), share "
         f"{out['bound_ms'] / ms:.2%}; {attrs['registers']} registers and {attrs['spill_bytes']} "
-        f"spill bytes a thread, {attrs['threads']}-thread blocks, {attrs['blocks_per_sm']} a SM")
+        f"spill bytes a thread, {attrs['block']}-thread blocks, {attrs['blocks_per_sm']} a SM")
     return out
 
 
@@ -2642,7 +2647,8 @@ def compare_kernels(calls, label: str, names, timed=()):
 def synthetic_calls(device) -> dict:
     """K1 on utils/synthetic.py's 20,480-pair tile (camera layout, ibuf) and
     on the depth-only 4000^2 grid of the same planes, K3 on a slot count
-    that is not a multiple of its 32-slot block, K6 at every quad width,
+    that is not a multiple of its 32-slot block, K11 on synthetic.K11_CASES,
+    K6 at every quad width,
     K8 on the pitch = s + 4 map at three rows_used and on lists of several
     passes of its grid (rows_used just below and above a multiple of its
     stride, and the whole list): the calls phase 5 holds bit-exact against
@@ -2656,6 +2662,9 @@ def synthetic_calls(device) -> dict:
     log(f"synthetic inputs: K1 one tile of {int(tile[0][3][-1])} pairs; K1 {grid[0][4]}^2 tiles "
         f"of 64, depth only, {int(starts[-1])} pairs, {int((starts[1:] == starts[:-1]).sum())} "
         f"empty tiles; K3 N = {pf.shape[1]} slots (N % 32 = {pf.shape[1] % 32}), p = {p}")
+    k11 = [(synthetic.k11_inputs(device, case), {}) for case in synthetic.K11_CASES]
+    log("synthetic inputs: K11 (N, cap, p) " + ", ".join(
+        f"{case} {synthetic.K11_CASES[case]}" for case in synthetic.K11_CASES))
     k6 = [synthetic.k6_inputs(device, c4) for c4 in synthetic.K6_WIDTHS]
     k8 = [synthetic.k8_inputs(device, used) for used in synthetic.K8_ROWS_USED]
     stride = shadow.pcf_eval_stride(device)
@@ -2669,7 +2678,7 @@ def synthetic_calls(device) -> dict:
         f"{', '.join(str(int(args[2][0])) for args, _ in strided)}")
     k8 += strided
     return {"raster_tiles": [tile, grid], "pack_shade_rows": [((pf, st, p), {})],
-            "tap_resolve": k6, "pcf_eval": k8}
+            "pack_shade_rows_tm": k11, "tap_resolve": k6, "pcf_eval": k8}
 
 
 def k8_vote(qreal_calls) -> None:
@@ -2732,6 +2741,56 @@ def k11_calls(real_calls):
     if d != 0.0:
         raise RuntimeError(f"K11's table differs from K3's on the same frame (max {d})")
     return {"pack_shade_rows_tm": [(args, {})]}
+
+
+def kernel_resources(library_path) -> dict:
+    """Each kernel function's registers, local (spill) bytes a thread,
+    shared bytes and SASS instructions in a built kernel library, as
+    ``cuobjdump`` (beside nvcc) reads them from its sm_90a code: {mangled
+    name: (registers, local bytes, shared bytes, instructions)}, printed.
+    Runs on any library this loader built, the parent commit's too."""
+    import re
+
+    from arctic_tpu_torch.utils import kernels
+
+    tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, str(library_path)], capture_output=True, text=True,
+                              check=True).stdout
+
+    usage = {m[1]: (int(m[2]), int(m[4]), int(m[3])) for m in re.finditer(
+        r"Function (\S+):\s+REG:(\d+) STACK:\d+ SHARED:(\d+) LOCAL:(\d+)", dump("-res-usage"))}
+    code = {}
+    for part in dump("-sass").split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        code[name.strip()] = len(re.findall(r"^\s+/\*[0-9a-f]+\*/\s", body, re.M))
+    if not usage:
+        raise RuntimeError(f"cuobjdump -res-usage listed no kernel function in {library_path}")
+    found = {name: (*usage[name], code.get(name)) for name in usage}
+    for name, (regs, local, shared, ins) in sorted(found.items()):
+        log(f"resources of {name} in {os.path.basename(library_path)}: {regs} registers, "
+            f"{local} local bytes, {shared} shared bytes, {ins} instructions")
+    return found
+
+
+def shade_rows_attributes(timing) -> None:
+    """K3's and K11's registers, spill bytes, block size and blocks a SM
+    (the two instantiations of csrc/pack_shade_rows.cu's kernel template),
+    printed with each one's share of its bound, and added to their entries
+    of ``timing``."""
+    import torch
+
+    from arctic_tpu_torch.utils import kernels
+
+    for name in ("pack_shade_rows", "pack_shade_rows_tm"):
+        attrs = kernels.attributes(f"arctic_{name}_attributes", torch.device("cuda"))
+        t = timing[name]
+        t["extra"] = attrs
+        log(f"{name}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share "
+            f"{t['bound_ms'] / t['ms']:.2%}; {attrs['registers']} registers and "
+            f"{attrs['spill_bytes']} spill bytes a thread, {attrs['block']}-thread blocks, "
+            f"{attrs['blocks_per_sm']} a SM")
 
 
 def k13_calls(qreal_calls):
@@ -2813,6 +2872,7 @@ def main() -> int:
     lib = kernels.build_library()
     kernels.library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> {os.path.basename(lib)}")
+    kernel_resources(lib)
 
     dev = torch.device("cuda")
     config, scene, _, params, settings = entry_scene("cpu")
@@ -2933,7 +2993,9 @@ def main() -> int:
         "bvh_trace": k14_timing(rreal_calls, rwork),
     }
     synth = compare_kernels(synthetic_calls(dev), "synthetic",
-                            ("raster_tiles", "pack_shade_rows", "tap_resolve", "pcf_eval"))
+                            ("raster_tiles", "pack_shade_rows", "pack_shade_rows_tm",
+                             "tap_resolve", "pcf_eval"))
+    shade_rows_attributes(timing)
     synth.update(compare_kernels(k14_synthetic_calls(dev), "synthetic", RT_PATH))
     (_, k6_kw), = real_calls["tap_resolve"]
     (k8_args, _), = qreal_calls["pcf_eval"]

@@ -1,6 +1,7 @@
 """arctic_tpu_torch core: maths and tonemap held against the JAX package on
-seeded inputs, plus two guards — the port imports no JAX, and its kernel
-loader raises (never falls back) when nvcc is missing.
+seeded inputs, plus three guards — the port imports no JAX, its kernel
+loader raises (never falls back) when nvcc is missing, and every kernel it
+registers and binds is in the sources it builds.
 
 Tolerances: jnp.cross / jnp.linalg.norm / jnp.dot run as compiled XLA
 computations that contract into FMAs, and at steep pitch cross(f, up)
@@ -180,3 +181,18 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.build_library(tmp_path)
     assert not list(tmp_path.iterdir())  # nothing half-built is left behind
+
+
+def test_kernel_registry_matches_the_sources():
+    """Every registered kernel names a source file that exists and is built,
+    and every launcher and query the loader binds is defined, with C
+    linkage, in one of the sources it compiles (K3 and K11 share a file)."""
+    from arctic_tpu_torch.models import pipeline, raytrace  # noqa: F401 (registers every kernel)
+
+    sources = {src.relative_to(REPO).as_posix() for src in kernels.sources()}
+    assert len(kernels.KERNELS) == 12
+    for fn in kernels.KERNELS:
+        assert fn.source in sources, (fn.kernel_name, fn.source)
+    text = "".join(open(os.path.join(REPO, src)).read() for src in sources)
+    for name in {**kernels._SIGNATURES, **kernels._QUERIES}:
+        assert f'extern "C" int {name}(' in text, name

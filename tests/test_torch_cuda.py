@@ -1,6 +1,6 @@
 """arctic_tpu_torch on the card: the twelve CUDA kernels against their
-plain torch versions (K1, K3, K6, K8 and K14 also on the synthetic inputs
-of utils/synthetic.py), the ray-traced entry frame and the grouped tile
+plain torch versions (K1, K3, K6, K8, K11 and K14 also on the synthetic
+inputs of utils/synthetic.py), the ray-traced entry frame and the grouped tile
 route (K9 once a group and once for the fallback), the entry frame as 2, 3
 and 8 slabs of tile rows (parallel/sharding.py: K1 and K4 with row0 != 0),
 and the entry frame, on the default path, on the
@@ -317,26 +317,30 @@ def test_new_kernels_equal_plain_on_random_inputs(cuda, name):
 
 
 def _synthetic_case(name, device):
-    """K1's and K3's synthetic inputs (utils/synthetic.py), as chip_smoke's
-    phase 5 makes them."""
+    """K1's, K3's and K11's synthetic inputs (utils/synthetic.py), as
+    chip_smoke's phase 5 makes them."""
     if name == "k1_dense_tile":
         return raster_tiles.raster_tiles, *synthetic.k1_dense_tile(device)
     if name == "k1_dense_tile_scalar_rows":  # lane0 % 4 != 0: the scalar row load
         return raster_tiles.raster_tiles, *synthetic.k1_dense_tile(device, lanes=16, lane0=3)
     if name == "k1_grid":
         return raster_tiles.raster_tiles, *synthetic.k1_grid(device)
+    if name.startswith("k11_"):
+        return raster_tiles.pack_shade_rows_tm, synthetic.k11_inputs(device, name[4:]), {}
     return raster_tiles.pack_shade_rows, synthetic.k3_ragged(device), {}
 
 
 @pytest.mark.parametrize("name", ["k1_dense_tile", "k1_dense_tile_scalar_rows", "k1_grid",
-                                  "k3_ragged"])
+                                  "k3_ragged"] + [f"k11_{case}" for case in synthetic.K11_CASES])
 def test_redesigned_kernels_equal_plain_on_synthetic_inputs(cuda, name):
     """K1 on a 20,480-pair tile (duplicates and equal-z ties inside a
     chunk and across chunk boundaries, slivers, z = +-0, NaN and inf
     planes) and on a
     depth-only 4000^2 grid of the same planes; K3 on a slot count that is
-    not a multiple of its 32-slot block: bit-equal to the plain versions,
-    one launch each."""
+    not a multiple of its 32-slot block; K11 where slot cap falls inside a
+    block, past 2 * cap (a zero tail), with N < 2 * cap, N < cap, N < 32 at
+    cap = 1 and cap a multiple of 32: bit-equal to the plain versions, one
+    launch each."""
     fn, args, kw = _synthetic_case(name, cuda)
     kernels.reset_launch_counts()
     got = fn(*args, **kw)
@@ -349,6 +353,16 @@ def test_redesigned_kernels_equal_plain_on_synthetic_inputs(cuda, name):
         assert (a is None) == (b is None)
         if a is not None:
             assert a.dtype == b.dtype and a.shape == b.shape and _same(a, b)
+
+
+@pytest.mark.parametrize("name", ["pack_shade_rows", "pack_shade_rows_tm"])
+def test_shade_row_kernel_attributes(cuda, name):
+    """K3's and K11's attribute queries (the two instantiations of one
+    kernel template): 256-thread blocks that an SM holds, registers within
+    the card's limit and no spill bytes."""
+    attrs = kernels.attributes(f"arctic_{name}_attributes", cuda)
+    assert attrs["block"] == 256 and attrs["blocks_per_sm"] >= 1
+    assert 0 < attrs["registers"] <= 255 and attrs["spill_bytes"] == 0
 
 
 # (tile_h, tile_w, depth_only): the sub-tile and its warp rectangles K1

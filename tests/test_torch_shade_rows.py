@@ -13,8 +13,9 @@ Tolerances:
   blended lanes within 1e-5 relative on valid slots — the reference's own
   bound (test_shade_rows_pack.py:76-83: its kernels contract FMAs);
 - the port's full stack against the port's K3 table, and K11 against K3 on
-  the dup'd planes: every lane bit-equal, NaN positions included (invalid
-  slots may hold 0/0 planes, the same in both);
+  the dup'd planes (the frame's and utils/synthetic.K11_CASES): every lane
+  bit-equal, NaN positions included (invalid slots may hold 0/0 planes,
+  the same in both);
 - the full-stack frame at 96x64: every pixel within 1 LSB of the port's
   default frame, with equal stats (the reference's gate,
   test_shade_rows_pack.py:98-101), uncached and with a sun cache. The
@@ -39,7 +40,7 @@ from arctic_tpu.ops import raster as jraster
 from arctic_tpu.ops import raster_tiles as jrt
 from arctic_tpu_torch.models import pipeline
 from arctic_tpu_torch.ops import raster_tiles
-from arctic_tpu_torch.utils import convert
+from arctic_tpu_torch.utils import convert, synthetic
 
 W, H, SHADOW = 96, 64, 64
 EYE, ROT = [0.0, 3.0, 1.0], [-15.0, -90.0]  # test_shade_rows_pack.py's camera
@@ -172,6 +173,25 @@ def test_k11_plain_matches_jax_at_its_slot_count(scene):
     got = raster_tiles.pack_shade_rows_tm(pf24, tri, st, p).numpy()
     _held_to_jax(got, want, scene["valid"], scene["kept"])
     assert got[2 * cap, 9] == want[2 * cap, 9] == float(2 * cap)
+
+
+@pytest.mark.parametrize("case", list(synthetic.K11_CASES))
+def test_k11_plain_equals_k3_plain_on_synthetic_cases(case):
+    """K11's plain version on each utils/synthetic.K11_CASES input (the wrap
+    at slot cap inside a 32-slot block, a zero tail, N < 2 * cap, N < cap,
+    N < 32 at cap = 1, cap a multiple of 32; p at 0, N, 2 * cap and
+    2 * cap + 1; 0.1% NaN / +-inf) equals K3's plain version on the dup'd
+    48-row stack, built here with numpy: every lane bit-equal, NaN positions
+    included."""
+    pf, tri, st, p = synthetic.k11_inputs("cpu", case)
+    n, cap = pf.shape[1], tri.shape[1]
+    dup = np.zeros((18, n), np.float32)
+    both = np.concatenate([tri.numpy(), tri.numpy()], axis=1)[:, :n]
+    dup[:, : both.shape[1]] = both
+    full = torch.from_numpy(np.concatenate([pf.numpy(), dup, np.zeros((6, n), np.float32)]))
+    got = raster_tiles.pack_shade_rows_tm(pf, tri, st, p)
+    assert got.shape == (n, 128) and p <= n
+    assert _same(got, raster_tiles.pack_shade_rows(full, st, p))
 
 
 @pytest.fixture(scope="module")
