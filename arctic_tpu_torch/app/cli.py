@@ -24,7 +24,11 @@ device and the slabs share the largest, rank 0 writes the PNGs and prints
 --stats, and the stats are maxed over the ranks. On cuda, N > 1 has not yet
 run on a machine with several cards (one card runs N = 1). --debug-checks
 turns NaN and Inf in the frame's inputs and passes into FloatingPointError
-(utils/errors.py).
+(utils/errors.py). --config takes the JAX package's RenderConfig fields by
+name, the camera tile (tile_h / tile_w) and the shadow tile (shadow_tile /
+shadow_tile_h) among them: frames are the same at every tile, and a tile
+the JAX package refuses on the frame's path raises RenderError before the
+scene loads (core/config.check_tiles).
 """
 
 from __future__ import annotations
@@ -73,8 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--load-state", help="load camera/lights/settings JSON")
     r.add_argument("--save-state", help="write camera/lights/settings JSON after rendering")
     r.add_argument("--config",
-                   help="JSON file of RenderConfig fields (tile sizes, pair capacity, "
-                   "pcf_row_cap, ...; the JAX package's field names)")
+                   help="JSON file of RenderConfig fields (the JAX package's names: "
+                   "tile_h / tile_w, shadow_tile / shadow_tile_h, pair capacity, "
+                   "pcf_row_cap, ...); frames are the same at every tile the JAX package "
+                   "takes: h * w % 128 == 0, and 128 % tile_w == 0 on the fused frame")
     r.add_argument("--device", default="cuda",
                    help="torch device of the scene buffers and the frame (default cuda)")
     r.add_argument("--bruteforce", action="store_true",
@@ -96,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
 def cmd_render(args) -> int:
     import torch
 
-    from arctic_tpu_torch.core.config import config_from_dict
+    from arctic_tpu_torch.core.config import check_tiles, config_from_dict
     from arctic_tpu_torch.core.scene import PointLights, default_scene_params, default_settings
     from arctic_tpu_torch.io.build import build_buffers
     from arctic_tpu_torch.io.images import load_hdr
@@ -124,6 +130,9 @@ def cmd_render(args) -> int:
     if args.ibl:
         fields["ibl_specular"] = True
     config = config_from_dict(fields)
+    sharded = bool(args.devices) and not args.raytrace
+    if not args.raytrace:  # the ray-traced mode bins nothing
+        check_tiles(config, world=args.devices if sharded else None)
 
     if args.procedural:
         from arctic_tpu_torch.io import procedural
@@ -142,7 +151,6 @@ def cmd_render(args) -> int:
         log.error("render: need a scene path or --procedural")
         return 2
 
-    sharded = bool(args.devices) and not args.raytrace
     # Sharded, this process holds the scene on the CPU only: each rank moves
     # it to its own device, and no rank shares a card with this process.
     buffers = build_buffers(meshes, objects, materials, env,

@@ -1,8 +1,9 @@
 """Render configuration of the port — the fields of arctic_tpu's
-core/config.py RenderConfig that the ported frame paths read, and the one
-rule that turns a dict of the JAX package's fields into it
+core/config.py RenderConfig that the ported frame paths read, the one rule
+that turns a dict of the JAX package's fields into it
 (:func:`config_from_dict`: the CLI's ``--config`` and
-``utils/convert.render_config`` both use it).
+``utils/convert.render_config`` both use it), and the one check of the
+tiles a frame path bins with (:func:`check_tiles`).
 
 The frame is the JAX package's fused frame by default; ``fused_shade=False``
 takes its deferred frame (a per-slot shade table gathered per pixel) and
@@ -23,8 +24,10 @@ from dataclasses import dataclass
 
 from arctic_tpu_torch.utils.errors import RenderError
 
-# Shadow-map tile (square), as the JAX package's default shadow_tile.
-SHADOW_TILE = 64
+# The tile grid the JAX package's binning takes: a tile's column and row
+# are packed into 9 and 13 bits (arctic_tpu/ops/binning.py:228).
+MAX_TILE_COLUMNS = 512
+MAX_TILE_ROWS = 8192
 
 
 def _round_up(x: int, m: int) -> int:
@@ -37,7 +40,14 @@ class RenderConfig:
     height: int = 720
     shadow_size: int = 4000
 
-    # Screen tile of the camera pass's binned rasterizer.
+    # Tile of the shadow pass's binned rasterizer: shadow_tile is the
+    # width, shadow_tile_h the height (None = square). Frames are tile-size
+    # invariant: every tile gives the same pixels.
+    shadow_tile: int = 64
+    shadow_tile_h: int | None = None
+
+    # Screen tile of the camera pass's binned rasterizer (frames are
+    # tile-size invariant here too).
     tile_h: int = 64
     tile_w: int = 64
 
@@ -121,6 +131,19 @@ class RenderConfig:
     def num_tiles(self) -> int:
         return self.tiles_x * self.tiles_y
 
+    @property
+    def shadow_th(self) -> int:
+        """The shadow tile's height."""
+        return self.shadow_tile_h or self.shadow_tile
+
+    @property
+    def shadow_tiles_x(self) -> int:
+        return -(-self.shadow_size // self.shadow_tile)
+
+    @property
+    def shadow_tiles_y(self) -> int:
+        return -(-self.shadow_size // self.shadow_th)
+
     def pair_capacity(self, clip_slots: int, kind: str = "cam") -> int:
         """Pair buffer entries of the camera (``kind="cam"``) or the shadow
         (``"shadow"``) pass."""
@@ -135,21 +158,10 @@ class RenderConfig:
 # which only picks table rows no window reads).
 IGNORED_FIELDS = frozenset({"raster_chunk", "select_chunk", "tiles_per_step", "lut_y_skip"})
 
-# Fields of the JAX package's RenderConfig whose other paths are not
-# ported: (the JAX default, which the port's frame is, and where it stands).
-UNPORTED_FIELDS = {
-    "shadow_tile": (SHADOW_TILE, "the port's shadow tile is 64 x 64, the only one the "
-                                 "JAX package's lut_rows path takes"),
-    "shadow_tile_h": (None, "the port's shadow tile is 64 x 64, the only one the "
-                            "JAX package's lut_rows path takes"),
-}
-
-
 def config_from_dict(fields: dict) -> RenderConfig:
     """A RenderConfig from the JAX package's RenderConfig fields by name.
-    Fields in IGNORED_FIELDS are dropped; a field of UNPORTED_FIELDS at its
-    JAX default is dropped, at any other value it raises RenderError
-    naming where its path stands, as does a name neither package has."""
+    Fields in IGNORED_FIELDS are dropped; a name neither package has raises
+    RenderError."""
     kept = {f.name for f in dataclasses.fields(RenderConfig)}
     out = {}
     for name, value in fields.items():
@@ -157,11 +169,51 @@ def config_from_dict(fields: dict) -> RenderConfig:
             out[name] = tuple(int(c) for c in value)  # a JSON list, or the JAX tuple
         elif name in kept:
             out[name] = value
-        elif name in UNPORTED_FIELDS:
-            default, where = UNPORTED_FIELDS[name]
-            if value != default:
-                raise RenderError(f"RenderConfig.{name}={value!r} takes a path the port does "
-                                  f"not have ({where})")
         elif name not in IGNORED_FIELDS:
             raise RenderError(f"RenderConfig has no field {name!r}")
     return RenderConfig(**out)
+
+
+def check_tiles(config: RenderConfig, shadow: bool = True, camera: bool = True,
+                world: int | None = None) -> None:
+    """Raise RenderError, naming the rule, on a tile that the JAX package
+    refuses on the path ``config`` takes: the shadow pass's tile
+    (``shadow``) and the camera pass's (``camera``), of the single-device
+    frame or of the sharded frame of ``world`` ranks. The JAX package's
+    asserts, by path:
+
+    - the brute-force frame bins nothing: any tile;
+    - every binned pass (raster_tiles.py:925): tile_h * tile_w % 128 == 0;
+    - the fused frame's camera pass, and every slab of the sharded frame
+      (fused unless brute force), resolves its G-buffer per 128-pixel row
+      (raster_tiles.py:814): 128 % tile_w == 0;
+    - every binned pass (binning.py:228): at most MAX_TILE_COLUMNS tiles
+      across and MAX_TILE_ROWS tile rows in the window it bins (a slab's
+      rows on the sharded frame)."""
+    if config.force_bruteforce:
+        return
+    fused = config.fused_shade or world is not None
+
+    def rows(n: int) -> int:  # the tile rows one window bins
+        return n if world is None else -(-n // world)
+
+    passes = []
+    if shadow:
+        passes.append(("shadow", "shadow_tile_h x shadow_tile", config.shadow_th,
+                       config.shadow_tile, config.shadow_tiles_x, rows(config.shadow_tiles_y),
+                       False))
+    if camera:
+        passes.append(("camera", "tile_h x tile_w", config.tile_h, config.tile_w,
+                       config.tiles_x, rows(config.tiles_y), fused))
+    for name, fields, th, tw, across, down, per_row in passes:
+        tile = f"RenderConfig {name} tile ({fields}) {th} x {tw}"
+        if th < 1 or tw < 1 or th * tw % 128:
+            raise RenderError(f"{tile}: a binned pass's tile must fill whole 128-pixel rows "
+                              f"(height * width % 128 == 0)")
+        if per_row and 128 % tw:
+            raise RenderError(f"{tile}: the fused frame's camera tile width must divide a "
+                              f"128-pixel row (128 % tile_w == 0)")
+        if across > MAX_TILE_COLUMNS or down > MAX_TILE_ROWS:
+            raise RenderError(f"{tile}: {across} tiles across and {down} tile rows to bin; "
+                              f"binning takes at most {MAX_TILE_COLUMNS} across and "
+                              f"{MAX_TILE_ROWS} rows")

@@ -14,16 +14,19 @@
 // 0:12 of the 16-float raster-row table for the shadow pass.
 //
 // Design. One block of kThreads = 128 threads per sub-tile of kBlockPixels
-// = 256 pixels, two pixels a thread. The sub-tile is a rectangle of its
-// tile, as square as the tile's sides allow: 16 x 16 in a 64 x 64 tile.
-// Each block walks its tile's whole list in chunks of 128 pairs, one pair a
-// thread. The thread loads its pair's row (three 16-byte loads where the
-// table's alignment allows) and tests it against the sub-tile's pixel
-// rectangle. The survivors are compacted in list order (warp ballots plus a
-// prefix over the 4 warps) into shared memory. The sub-tile's pixels fall
-// into 8 rectangles of 32 (8 x 4), and warp w owns rectangles w and w + 4,
-// one pixel of each per lane. The warp tests the survivors again, 32 at a
-// time, against each of its rectangles, and evaluates at a rectangle's
+// = 256 pixels, two pixels a thread. The sub-tile is a power-of-two
+// rectangle, bw x bh, and each tile is covered by ceil(th / bh) x ceil(tw /
+// bw) of them: the fewest that cover it, the squarest of those (16 x 16 in
+// a 64 x 64 tile; ops/raster_tiles.block_layout chooses, the launcher gets
+// log2 bw). Each block walks its tile's whole list in chunks of 128 pairs,
+// one pair a thread. The thread loads its pair's row (three 16-byte loads
+// where the table's alignment allows) and tests it against the sub-tile's
+// pixel rectangle. The survivors are compacted in list order (warp ballots
+// plus a prefix over the 4 warps) into shared memory. The sub-tile's pixels
+// fall into 8 rectangles of 32 (8 x 4 in a 16 x 16 sub-tile; also a power-
+// of-two rectangle, chosen the same way), and warp w owns rectangles w and
+// w + 4, one pixel of each per lane. The warp tests the survivors again, 32
+// at a time, against each of its rectangles, and evaluates at a rectangle's
 // pixels only those that pass there, two at a time, in list order. A dense
 // tile's list is thereby spread over its sub-tiles' blocks, and each warp
 // evaluates only the pairs that can reach it. The list order, and with it
@@ -32,6 +35,17 @@
 // 16 x 16 sub-tiles of 128 threads were faster than 32 x 32 ones, and had
 // the lowest sum over both passes of the 128- and 256-thread blocks tried
 // (PERF.md).
+//
+// Any tile shape. Where the sub-tiles tile the tile exactly (every tile of
+// a multiple of 256 pixels with power-of-two factors to spare, 64 x 64 among
+// them), the kernel is instantiated with kClip = false and is the code it
+// always was. Otherwise (kClip) the sub-tiles on a tile's right and bottom
+// edges hang over it: the block's and each warp rectangle's cull rectangle
+// is clipped to the tile's pixels, so its corners are pixels of the tile
+// and the argument below holds word for word, and a pixel outside the tile
+// accepts nothing and is not stored. A 128-pixel tile (8 x 16, 1 x 128)
+// leaves half of its block idle; a rectangle wholly outside the tile passes
+// no pair.
 //
 // Why the cull is exact. Built with -fmad=false, an edge value is
 // e = fl(fl(fl(A*px) + fl(B*py)) + C). Round-to-nearest is monotone, and
@@ -78,7 +92,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cstdlib>
 
 namespace {
 
@@ -88,7 +101,6 @@ constexpr int kPixelsPerThread = 2;
 constexpr int kLog2BlockPixels = 8;
 constexpr int kBlockPixels = 1 << kLog2BlockPixels;
 static_assert(kThreads * kPixelsPerThread == kBlockPixels, "one pixel per thread per rectangle");
-constexpr int kMaxTilePixels = 4096;
 constexpr int kChunk = kThreads;  // pairs tested per step, one a thread
 constexpr int kComps = 12;        // A,B,C x 3 edges, Az,Bz,Cz
 constexpr int kUnroll = 2;        // survivors evaluated together
@@ -132,7 +144,7 @@ __device__ __forceinline__ void unpack(const float4 (&q)[kComps / 4], float (&v)
   }
 }
 
-template <bool kWriteIbuf>
+template <bool kWriteIbuf, bool kClip>
 __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
     const float* __restrict__ rows, int row_stride, int lane0, bool vec_rows,
     const int* __restrict__ sorted_slot, const int* __restrict__ tile_start,
@@ -144,27 +156,34 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
 
   const int block_w = 1 << block_w_log2;
   const int block_h = kBlockPixels >> block_w_log2;
-  const int blocks_x = tile_w >> block_w_log2;
-  const int per_tile = blocks_x * (tile_h / block_h);
+  // kClip: the edge sub-tiles hang over the tile.
+  const int blocks_x = kClip ? (tile_w + block_w - 1) >> block_w_log2 : tile_w >> block_w_log2;
+  const int blocks_y = kClip ? (tile_h + block_h - 1) / block_h : tile_h / block_h;
+  const int per_tile = blocks_x * blocks_y;
   const int t = blockIdx.x / per_tile;
   const int b = blockIdx.x - t * per_tile;
   const int x0 = (t % tiles_x) * tile_w + (b % blocks_x) * block_w;
   // Global pixel rows: the rectangles and pixel centres see the frame's rows.
   const int y0 = row0 + (t / tiles_x) * tile_h + (b / blocks_x) * block_h;
+  // One past the tile's last pixel column and row (kClip only).
+  const int x_end = (t % tiles_x + 1) * tile_w;
+  const int y_end = row0 + (t / tiles_x + 1) * tile_h;
   const int begin = tile_start[t];
   const int end = tile_start[t + 1];
 
   // The block's pixels fall into kWarps * kPixelsPerThread rectangles of 32
   // (rect_w x rect_h, row-major in the block); thread (warp, lane) owns lane
-  // l's pixel (row-major) of rectangles warp + kWarps * i.
+  // l's pixel (row-major) of rectangles warp + kWarps * i. With kClip a
+  // rectangle is cut to its cw x ch pixels inside the tile (none: 0 wide).
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int rect_w = 1 << rect_w_log2;
   const int rect_h = 32 >> rect_w_log2;
   const int rects_x = block_w >> rect_w_log2;
-  int rx[kPixelsPerThread], ry[kPixelsPerThread];
+  int rx[kPixelsPerThread], ry[kPixelsPerThread], cw[kPixelsPerThread], ch[kPixelsPerThread];
   float px[kPixelsPerThread], py[kPixelsPerThread], z[kPixelsPerThread];
   int id[kPixelsPerThread];
+  bool inside[kPixelsPerThread];
 #pragma unroll
   for (int i = 0; i < kPixelsPerThread; ++i) {
     const int r = warp + kWarps * i;
@@ -174,10 +193,22 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
     py[i] = (float)(ry[i] + (lane >> rect_w_log2)) + 0.5f;
     z[i] = 1.0f;
     id[i] = -1;
+    if (kClip) {
+      cw[i] = max(min(rect_w, x_end - rx[i]), 0);
+      ch[i] = max(min(rect_h, y_end - ry[i]), 0);
+      cw[i] = ch[i] > 0 ? cw[i] : 0;
+      inside[i] = (lane & (rect_w - 1)) < cw[i] && (lane >> rect_w_log2) < ch[i];
+    } else {
+      cw[i] = rect_w;
+      ch[i] = rect_h;
+      inside[i] = true;
+    }
   }
 
   if (begin < end) {
-    const Rect block_rect = pixel_rect(x0, y0, block_w, block_h);
+    const Rect block_rect =
+        kClip ? pixel_rect(x0, y0, min(block_w, x_end - x0), min(block_h, y_end - y0))
+              : pixel_rect(x0, y0, block_w, block_h);
     for (int c0 = begin; c0 < end; c0 += kChunk) {
       const int k = c0 + threadIdx.x;
       float v[kComps];
@@ -224,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
           unpack(s_row[g + lane], v);
 #pragma unroll
           for (int i = 0; i < kPixelsPerThread; ++i)
-            hit[i] = !rejects(v, pixel_rect(rx[i], ry[i], rect_w, rect_h));
+            hit[i] = (!kClip || cw[i] > 0) && !rejects(v, pixel_rect(rx[i], ry[i], cw[i], ch[i]));
         } else {
 #pragma unroll
           for (int i = 0; i < kPixelsPerThread; ++i) hit[i] = false;
@@ -257,8 +288,8 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
             }
 #pragma unroll
             for (int u = 0; u < kUnroll; ++u) {
-              if (live[u] && e0[u] >= 0.0f && e1[u] >= 0.0f && e2[u] >= 0.0f && zz[u] >= 0.0f &&
-                  zz[u] < z[i]) {
+              if (live[u] && inside[i] && e0[u] >= 0.0f && e1[u] >= 0.0f && e2[u] >= 0.0f &&
+                  zz[u] >= 0.0f && zz[u] < z[i]) {
                 z[i] = zz[u];
                 if (kWriteIbuf) id[i] = s_slot[j[u]];
               }
@@ -271,6 +302,7 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
 
 #pragma unroll
   for (int i = 0; i < kPixelsPerThread; ++i) {
+    if (!inside[i]) continue;
     // Slab-local rows in the buffers.
     const size_t o =
         (size_t)(ry[i] - row0 + (lane >> rect_w_log2)) * out_w + rx[i] + (lane & (rect_w - 1));
@@ -279,16 +311,14 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(
   }
 }
 
-// log2 of the width of the squarest w x h rectangle of 2^area_log2 pixels,
-// w a power of two, that tiles a width x height area (the wider of two
-// equally square ones); -1 if none does.
-int squarest(int width, int height, int area_log2) {
-  int best = -1;
-  for (int c = 0; c <= area_log2; ++c) {
-    if (width % (1 << c) != 0 || height % ((1 << area_log2) >> c) != 0) continue;
-    if (best < 0 || abs(2 * c - area_log2) <= abs(2 * best - area_log2)) best = c;
-  }
-  return best;
+template <bool kWriteIbuf, bool kClip>
+void launch(unsigned blocks, cudaStream_t s, const float* rows, int row_stride, int lane0,
+            bool vec_rows, const int* sorted_slot, const int* tile_start, int tiles_x,
+            int tile_h, int tile_w, int block_w_log2, int rect_w_log2, int out_w, int row0,
+            float* zbuf, int* ibuf) {
+  raster_tiles_kernel<kWriteIbuf, kClip><<<blocks, kThreads, 0, s>>>(
+      rows, row_stride, lane0, vec_rows, sorted_slot, tile_start, tiles_x, tile_h, tile_w,
+      block_w_log2, rect_w_log2, out_w, row0, zbuf, ibuf);
 }
 
 }  // namespace
@@ -296,31 +326,34 @@ int squarest(int width, int height, int area_log2) {
 // rows: (P, row_stride) f32 row table; the 12 raster comps at [lane0, lane0+12).
 // sorted_slot: the binned pair list; tile_start: (num_tiles + 1,) offsets.
 // zbuf / ibuf: (tiles_y * tile_h, out_w) row-major; ibuf may be null (depth only).
+// block_w_log2 / rect_w_log2: log2 of the sub-tile's width (of 256 pixels)
+// and of its warp rectangles' (of 32 pixels), which must fit in it.
 // row0: the global pixel row of the buffers' first row (0: the whole frame).
 extern "C" int arctic_raster_tiles(
     const float* rows, int row_stride, int lane0, const int* sorted_slot,
     const int* tile_start, int num_tiles, int tiles_x, int tile_h, int tile_w,
-    int out_w, int row0, float* zbuf, int* ibuf, void* stream) {
+    int block_w_log2, int rect_w_log2, int out_w, int row0, float* zbuf, int* ibuf,
+    void* stream) {
   if (num_tiles <= 0) return (int)cudaSuccess;
-  if (tile_h * tile_w > kMaxTilePixels) return (int)cudaErrorInvalidValue;
-  // The sub-tile, then the 32-pixel rectangles in it (those always fit: the
-  // sub-tile's sides are powers of two).
-  const int block_w_log2 = squarest(tile_w, tile_h, kLog2BlockPixels);
-  if (block_w_log2 < 0) return (int)cudaErrorInvalidValue;
-  const int rect_w_log2 = squarest(1 << block_w_log2, kBlockPixels >> block_w_log2, 5);
+  if (tile_h <= 0 || tile_w <= 0 || block_w_log2 < 0 || block_w_log2 > kLog2BlockPixels ||
+      rect_w_log2 < 0 || rect_w_log2 > 5 || rect_w_log2 > block_w_log2 ||
+      5 - rect_w_log2 > kLog2BlockPixels - block_w_log2)
+    return (int)cudaErrorInvalidValue;
+  const int block_w = 1 << block_w_log2;
+  const int block_h = kBlockPixels >> block_w_log2;
+  const bool clip = tile_w % block_w != 0 || tile_h % block_h != 0;
+  const long long per_tile =
+      (long long)((tile_w + block_w - 1) / block_w) * ((tile_h + block_h - 1) / block_h);
+  const long long blocks = (long long)num_tiles * per_tile;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // gridDim.x's limit
   const bool vec_rows =
       reinterpret_cast<uintptr_t>(rows) % 16 == 0 && row_stride % 4 == 0 && lane0 % 4 == 0;
-  const unsigned blocks = (unsigned)((long long)num_tiles * (tile_h * tile_w / kBlockPixels));
   cudaStream_t s = (cudaStream_t)stream;
-  if (ibuf != nullptr) {
-    raster_tiles_kernel<true><<<blocks, kThreads, 0, s>>>(
-        rows, row_stride, lane0, vec_rows, sorted_slot, tile_start, tiles_x, tile_h, tile_w,
-        block_w_log2, rect_w_log2, out_w, row0, zbuf, ibuf);
-  } else {
-    raster_tiles_kernel<false><<<blocks, kThreads, 0, s>>>(
-        rows, row_stride, lane0, vec_rows, sorted_slot, tile_start, tiles_x, tile_h, tile_w,
-        block_w_log2, rect_w_log2, out_w, row0, zbuf, ibuf);
-  }
+  using Launch = decltype(&launch<true, true>);
+  const Launch go = ibuf != nullptr ? (clip ? &launch<true, true> : &launch<true, false>)
+                                    : (clip ? &launch<false, true> : &launch<false, false>);
+  go((unsigned)blocks, s, rows, row_stride, lane0, vec_rows, sorted_slot, tile_start, tiles_x,
+     tile_h, tile_w, block_w_log2, rect_w_log2, out_w, row0, zbuf, ibuf);
   return (int)cudaGetLastError();
 }
 

@@ -54,7 +54,7 @@ import logging
 import numpy as np
 import torch
 
-from arctic_tpu_torch.core.config import SHADOW_TILE, RenderConfig
+from arctic_tpu_torch.core.config import RenderConfig, check_tiles
 from arctic_tpu_torch.core.scene import (
     MAX_POINT_LIGHTS,
     Geometry,
@@ -142,7 +142,7 @@ def sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config: RenderConfig):
     lo, hi = scene_aabb(wc, tri_valid)
     return cull.shadow_cull_rect(
         cam_pv.to(lo.device), sun_pv.to(lo.device), lo, hi, config.shadow_size,
-        SHADOW_TILE, SHADOW_TILE,
+        config.shadow_th, config.shadow_tile,
     )
 
 
@@ -168,10 +168,10 @@ def rasterize(setup: raster.TriSetup, height: int, width: int, config: RenderCon
         zbuf, ibuf = raster.rasterize_bruteforce(setup, height, width)
         pairs = torch.zeros((), dtype=torch.int32, device=setup.valid.device)
         return zbuf, None if kind == "shadow" else ibuf, pairs, 1
-    tile = SHADOW_TILE if kind == "shadow" else None
+    shadow = kind == "shadow"
     zbuf, ibuf, pairs = raster_tiles.rasterize_tiled(
-        setup, height, width, config, tile_h=tile, tile_w=tile,
-        depth_only=kind == "shadow", rect=rect,
+        setup, height, width, config, tile_h=config.shadow_th if shadow else None,
+        tile_w=config.shadow_tile if shadow else None, depth_only=shadow, rect=rect,
     )
     return zbuf, ibuf, pairs, config.pair_capacity(setup.capacity, kind)
 
@@ -180,9 +180,11 @@ def shadow_pass(geom: Geometry, sun_clip, config: RenderConfig, cull_rect=None):
     """Depth-only pass from the sun's view (shadow_map_pass.cpp:113-169),
     front faces culled, over the cull rect's tiles (None: all of them);
     returns (shadow map (S, S), pairs, pair cap). On the binned path the map
-    is a view of K1's row-major (tile-padded) depth buffer with its row
-    pitch: the quantised path's table build reads it in place, which is the
-    JAX package's lut_rows raster (raster_tiles.py:1007)."""
+    is a view of K1's row-major (tile-padded) depth buffer, shadow_th x
+    shadow_tile tiles, with its row pitch shadow_tiles_x * shadow_tile: the
+    quantised path's table build reads it in place at any tile (the JAX
+    package's lut_rows raster, raster_tiles.py:1007, at its 64-pixel tile;
+    the untiled map at the others)."""
     tri_valid = torch.arange(geom.capacity, device=geom.tri_trs.device) < geom.num_tris
     clipped = raster.near_clip_corners(sun_clip, tri_valid)
     s = config.shadow_size
@@ -681,8 +683,10 @@ def render_frame_stats(
 
     ``sun_cache`` (a build_sun_cache result) replaces the shadow pass, the
     window table and the pyramid while the sun and the geometry are
-    unchanged; the frame's pixels are the same."""
+    unchanged; the frame's pixels are the same. Tiles the JAX package
+    refuses on this frame's path raise RenderError (core/config.check_tiles)."""
     use_full_f32()
+    check_tiles(config, shadow=sun_cache is None)
     check_frame_inputs(params, settings)
     geom = buffers.geometry
     dev = buffers.device
@@ -825,6 +829,7 @@ def build_sun_cache(buffers: SceneBuffers, params: SceneParams, config: RenderCo
     (SunCache, stats with shadow_pairs / shadow_pair_cap). Build it again
     when the sun or the geometry changes."""
     use_full_f32()
+    check_tiles(config, camera=False)
     geom = buffers.geometry
     with named_scope("shadow_pass"):
         sun_clip = corners_clip(world_corners(geom), params.sun.proj_view())
@@ -880,7 +885,6 @@ def measure_pair_counts(buffers: SceneBuffers, params, config: RenderConfig) -> 
     wc = world_corners(geom)
     tri_valid = torch.arange(geom.capacity, device=buffers.device) < geom.num_tris
     s = config.shadow_size
-    n_sh = -(-s // SHADOW_TILE)
     cam = sh = 0
     for p in params if isinstance(params, (list, tuple)) else [params]:
         cam_pv, sun_pv = p.camera.proj_view(), p.sun.proj_view()
@@ -893,7 +897,8 @@ def measure_pair_counts(buffers: SceneBuffers, params, config: RenderConfig) -> 
         rect = None
         if fused(config) and config.sun_frustum_cull:
             rect = sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)[0]
-        h = binning.count_pairs(sh_setup, n_sh, n_sh, SHADOW_TILE, SHADOW_TILE, rect=rect)
+        h = binning.count_pairs(sh_setup, config.shadow_tiles_x, config.shadow_tiles_y,
+                                config.shadow_tile, config.shadow_th, rect=rect)
         cam, sh = max(cam, int(c)), max(sh, int(h))
     return cam, sh
 

@@ -129,6 +129,27 @@ def block_rejects(rows12, x_lo, x_hi, y_lo, y_hi):
     return rejected
 
 
+def block_layout(tile_h: int, tile_w: int) -> tuple[int, int, int, int]:
+    """K1's sub-tile of 256 pixels and its warp rectangles of 32 for a
+    tile_h x tile_w tile: (bh, bw, rh, rw), each side a power of two. The
+    sub-tile is the one of which the fewest cover the tile (ceil(tile_h /
+    bh) * ceil(tile_w / bw)), the squarest of those, the wider of two
+    equally square; the rectangles are chosen the same way in the sub-tile
+    (they tile it). Where no sub-tile tiles the tile exactly, the edge
+    sub-tiles hang over it and K1 clips them (csrc/raster_tiles.cu)."""
+
+    def best(height, width, log2):
+        def blocks(c):
+            return -(-height // (1 << (log2 - c))) * -(-width // (1 << c))
+
+        return min(range(log2 + 1), key=lambda c: (blocks(c), abs(2 * c - log2), -c))
+
+    bw_log2 = best(tile_h, tile_w, 8)
+    bh, bw = 256 >> bw_log2, 1 << bw_log2
+    rw_log2 = best(bh, bw, 5)
+    return bh, bw, 32 >> rw_log2, 1 << rw_log2
+
+
 def covered_pair_pixels(
     rows, lane0, sorted_slot, tile_start, tiles_x, tiles_y, tile_h, tile_w,
     depth_only=False, row0=0,
@@ -157,7 +178,8 @@ def raster_tiles(
     """K1: per-tile depth raster over the binned pair lists.
 
     rows: (P, stride) f32 row table whose lanes [lane0, lane0 + 12) hold a
-    slot's 3 edge planes and z plane; sorted_slot / tile_start: the binning.
+    slot's 3 edge planes and z plane; sorted_slot / tile_start: the binning
+    of tile_h x tile_w tiles, any shape of whole 128-pixel rows.
     ``row0``: the frame's pixel row of the buffers' first row (a slab of a
     sharded frame; 0 = the whole frame). Returns (zbuf (H_pad, W_pad) f32
     cleared to 1.0, ibuf (H_pad, W_pad) i32 cleared to -1, or None when
@@ -173,17 +195,19 @@ def raster_tiles(
         raise ValueError(f"rows: need 12 lanes from {lane0}, got {tuple(rows.shape)}")
     kernels.check_cuda(sorted_slot, "sorted_slot", torch.int32)
     kernels.check_cuda(tile_start, "tile_start", torch.int32, (num_tiles + 1,))
-    npix = tile_h * tile_w
-    if npix % 256 or npix > 4096:
-        raise ValueError(f"tile {tile_h}x{tile_w}: pixels must be a multiple of 256, <= 4096")
+    if tile_h < 1 or tile_w < 1 or tile_h * tile_w % 128:
+        raise ValueError(f"tile {tile_h}x{tile_w}: its pixels must fill whole 128-pixel rows")
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
-    if not 0 <= row0 < (1 << 23) - hp:
-        raise ValueError(f"row0 = {row0}: pixel rows must stay below 2^23")
+    if not 0 <= row0 < (1 << 23) - hp or wp >= 1 << 23:
+        raise ValueError(f"row0 = {row0}, {hp} x {wp} buffer: pixel rows and columns must "
+                         f"stay below 2^23")
+    _, bw, _, rw = block_layout(tile_h, tile_w)
     zbuf = torch.empty((hp, wp), dtype=torch.float32, device=rows.device)
     ibuf = None if depth_only else torch.empty((hp, wp), dtype=torch.int32, device=rows.device)
     kernels.launch(
         "arctic_raster_tiles", rows, rows.shape[1], lane0, sorted_slot, tile_start,
-        num_tiles, tiles_x, tile_h, tile_w, wp, row0, zbuf, ibuf,
+        num_tiles, tiles_x, tile_h, tile_w, bw.bit_length() - 1, rw.bit_length() - 1, wp, row0,
+        zbuf, ibuf,
     )
     raster_tiles.launches += 1
     return zbuf, ibuf

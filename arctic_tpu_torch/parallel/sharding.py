@@ -8,7 +8,8 @@ torch.distributed process group (NCCL on CUDA, gloo on the CPU).
   sharding the pair sort).
 - The shadow map and the frame are cut into horizontal slabs of whole tile
   rows: ``cam_tile_rows = round_up(ceil(H / tile_h), world)`` and
-  ``sh_tile_rows = round_up(ceil(S / 64), world)``, split evenly, so
+  ``sh_tile_rows = round_up(ceil(S / sth), world)`` (sth = the shadow
+  tile's height, RenderConfig.shadow_th), split evenly, so
   trailing ranks may get partial or empty windows; the frame and the map
   are cropped to H and S.
 - Each rank bins and rasters its shadow slab (depth only, front faces
@@ -46,7 +47,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from arctic_tpu_torch.core.config import SHADOW_TILE, RenderConfig
+from arctic_tpu_torch.core.config import RenderConfig, check_tiles
 from arctic_tpu_torch.core.scene import SceneBuffers, SceneParams, Settings
 from arctic_tpu_torch.models import pipeline
 from arctic_tpu_torch.ops import raster, raster_tiles, shadow
@@ -76,11 +77,13 @@ class SlabLayout(NamedTuple):
 
 def slab_layout(config: RenderConfig, world: int) -> SlabLayout:
     """The tile rows of each rank's camera and shadow slab
-    (arctic_tpu/parallel/sharding.py:77-81)."""
+    (arctic_tpu/parallel/sharding.py:77-83); raises RenderError on tiles
+    the sharded frame does not take (core/config.check_tiles)."""
     if world < 1:
         raise RenderError(f"a sharded frame needs at least one rank, got {world}")
-    cam = _round_up(-(-config.height // config.tile_h), world)
-    sh = _round_up(-(-config.shadow_size // SHADOW_TILE), world)
+    check_tiles(config, world=world)
+    cam = _round_up(config.tiles_y, world)
+    sh = _round_up(config.shadow_tiles_y, world)
     return SlabLayout(world, cam, cam // world, sh, sh // world)
 
 
@@ -112,19 +115,21 @@ def replicated_inputs(buffers: SceneBuffers, params: SceneParams,
 
 def shadow_slab(buffers: SceneBuffers, config: RenderConfig, layout: SlabLayout, rank: int,
                 front: ReplicatedInputs):
-    """Rank ``rank``'s shadow slab: (depth (sh_rows * 64, W) f32, pairs
-    0-dim i32). Binned slabs are tile-padded (W = 64 * ceil(S / 64)) and
+    """Rank ``rank``'s shadow slab: (depth (sh_rows * sth, W) f32, pairs
+    0-dim i32), sth x st the shadow tile (RenderConfig.shadow_th x
+    shadow_tile). Binned slabs are tile-padded (W = st * ceil(S / st)) and
     rastered by K1 inside the sun-cull rect; brute-force slabs are S wide."""
     s = config.shadow_size
     clipped = raster.near_clip_corners(front.sun_clip, front.tri_valid)
     setup = raster.setup_screen_triangles(clipped, s, s, cull="front")
-    rows = layout.sh_rows * SHADOW_TILE
+    rows = layout.sh_rows * config.shadow_th
     if config.force_bruteforce:
         zbuf, _ = raster.rasterize_bruteforce(setup, rows, s, y_offset=rank * rows)
         return zbuf, torch.zeros((), dtype=torch.int32, device=zbuf.device)
     zbuf, _, pairs = raster_tiles.rasterize_tiled(
-        setup, s, s, config, SHADOW_TILE, SHADOW_TILE, depth_only=True, rect=front.cull_rect,
-        tile_row0=rank * layout.sh_rows, tile_rows=layout.sh_rows, crop=False,
+        setup, s, s, config, config.shadow_th, config.shadow_tile, depth_only=True,
+        rect=front.cull_rect, tile_row0=rank * layout.sh_rows, tile_rows=layout.sh_rows,
+        crop=False,
     )
     return zbuf, pairs
 

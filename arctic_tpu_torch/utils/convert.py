@@ -143,9 +143,9 @@ def settings(js) -> Settings:
 
 def render_config(jc) -> RenderConfig:
     """JAX-package RenderConfig -> RenderConfig, by core/config's
-    config_from_dict: fields that change no pixel are dropped, and a field
-    whose path the port does not have raises RenderError unless it is at
-    its JAX default."""
+    config_from_dict: every field carries over (the shadow tile's
+    shadow_tile / shadow_tile_h among them), but the ones that change no
+    pixel, which are dropped."""
     return config_from_dict({f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)})
 
 

@@ -43,7 +43,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the launchers; each returns its cudaError_t as an int.
 _SIGNATURES = {
-    "arctic_raster_tiles": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "arctic_raster_tiles": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "arctic_pack_shade_rows": (_P, _P, _I, _I, _P, _P),
     "arctic_select_interp": (_P, _P, _I, _I, _I, _P, _P),
     "arctic_tap_resolve": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),

@@ -11,8 +11,10 @@ edges through pixel centres (e = 0 exactly), constant-depth groups nearer
 than everything else (equal-z ties, decided by list order), z = +0.0 and
 -0.0 planes, NaN and +-inf coefficients, and exact duplicate rows inside one
 of the kernel's chunks (128 pairs) and across chunk boundaries. And a few
-tiles of every shape the wrapper takes (16 x 16 to 64 x 64, non-square,
-sides that are not powers of two), whose sub-tile layout K1 derives from
+tiles of every kind of shape the wrapper takes (K1_TILES: 16 x 16 to 64 x
+64, non-square, sides that are not powers of two; K1_NEW_TILES: 128-pixel
+tiles, 1 pixel high or wide, tiles no 256-pixel sub-tile tiles exactly,
+and tiles of more than 4096 pixels), whose sub-tile layout K1 derives from
 the tile's sides.
 
 K3: random planes (NaN and +-inf included) over a slot count that is not a
@@ -207,6 +209,17 @@ def k1_grid(device, seed: int = 0, n_pairs: int = DENSE_PAIRS):
         if t not in tiles and sparse.uniform() >= 1 / 3:
             tiles[t] = _tile_rows(sparse, t % n, t // n, int(sparse.integers(1, 41)))
     return _k1_args(device, tiles, n, n, 16, 0, rng), {"depth_only": True}
+
+
+# K1's tile shapes (tile_h, tile_w): tiles its 256-pixel sub-tiles tile
+# exactly, up to 4096 pixels (16 x 16 sub-tiles of square, wide and tall
+# tiles, a side of 48; 64 x 4 sub-tiles of 12 x 64; one 32 x 8 sub-tile of
+# 8 x 32; 128 x 2 sub-tiles of 16 x 2 rectangles) ...
+K1_TILES = ((16, 16), (32, 32), (16, 64), (48, 16), (12, 64), (8, 32), (2, 128), (64, 64))
+# ... and every other kind of tile of whole 128-pixel rows: 128-pixel tiles
+# (half a sub-tile), 1 pixel high and 1 pixel wide, 16 x 24 (no power-of-two
+# 256-pixel rectangle tiles it), and 8,192 to 65,536 pixels.
+K1_NEW_TILES = ((8, 16), (16, 8), (1, 128), (64, 128), (128, 128), (128, 1), (16, 24), (256, 256))
 
 
 def k1_tiles(device, tile_h: int, tile_w: int, depth_only: bool = False, seed: int = 0):

@@ -6,8 +6,9 @@
 The real-size default scene comes through bench.py's GLB + HDR round trip
 (phase 4), and the CLI renders a GLB (phase 4g). The per-slot, unmerged
 and grouped texture routes and the ray-traced mode (K14 bvh_trace) run
-after the others (3i-3l, 4j-4l); the sharded frame, the viewer and the
-debug checks last (6a-6f). Four frame paths are driven first: the default one (exact f32 PCF; kernels K1
+after the others (3i-3l, 4j-4l); then the sharded frame, the viewer and
+the debug checks (6a-6f), and RenderConfig's shadow and camera tiles last
+(7a-7d). Four frame paths are driven first: the default one (exact f32 PCF; kernels K1
 raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve), the
 quantised PCF path of RenderConfig.pcf_row_cap (the same four plus K7
 window_lut_q and K8 pcf_eval), with and without a sun cache, the textured
@@ -173,6 +174,26 @@ which raises on failure (exit code != 0):
    to the unchecked ones of phases 3 and 4; a NaN light colour raises
    FloatingPointError at the frame's inputs, a NaN corner normal of a
    covered triangle at forward_visibility;
+7a. (after 6f, as are 7b-7d) RenderConfig's shadow and camera tiles on the
+   entry scene: shadow tiles 16 x 16, 8 high x 16 wide, 16 x 24 and 128 x
+   128, camera tiles 8 x 16, 1 x 128 and 128 x 128 on the default path,
+   and the 16 x 24 shadow tile on the quantised and the deferred path:
+   K1 twice a frame, each frame bit-equal to its path's frame at 64 x 64
+   tiles and within 1 LSB of the port's CPU frame at that tile (pair stats
+   equal); K1 bit-equal to its plain version on those frames' calls and,
+   in one launch, on utils/synthetic.k1_tiles at each of K1_NEW_TILES
+   (128-pixel tiles, 1 x 128, 128 x 1, 16 x 24, up to 256 x 256), with and
+   without the ibuf;
+7b. real-size frame 0 at shadow tiles 16, 32 and 128 and camera tiles 8 x
+   16 and 128 x 128, pair caps from autotune_pair_caps(margin=1.4) over
+   bench.py's 20 viewpoints at each tile: each frame bit-equal to phase
+   4's frame 0; K1 bit-equal to its plain version, its CUDA-event ms,
+   plain ms and bound per pass and the pairs per pass printed; the
+   quantised frame 0 at shadow tile 32 (4b's row cap) bit-equal to 4b's;
+7c. real-size frame 0 at shadow tile 32 as 4 slabs, bit-equal to phase
+   4's frame 0 (K1's shadow slabs from row rank * sh_rows * 32);
+7d. the CLI with --config {"shadow_tile": 16} on 4g's GLB: its PNG
+   bit-equal to 4g's in-process frame;
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded; K14 on every
    ray of the real-size calls, frame 0's and the light-shadow frame's; K1
@@ -309,6 +330,29 @@ REAL_SLABS = 4
 MULTI_CARD_RANKS = 4
 # 6e: the viewer's pair-cap headroom over its first viewpoint (viewer.main's).
 VIEWER_MARGIN = 4.0
+# 7a: the entry scene at tests/test_torch_tiles.py's tiles (label: path,
+# tile fields); each frame bit-equal to the path's 64 x 64 entry frame.
+TILE_CASES = {
+    "shadow 16x16": ("default", dict(shadow_tile=16)),
+    "shadow 8h x 16w": ("default", dict(shadow_tile=16, shadow_tile_h=8)),
+    "shadow 16h x 24w": ("default", dict(shadow_tile=24, shadow_tile_h=16)),
+    "shadow 128x128": ("default", dict(shadow_tile=128)),
+    "camera 8x16": ("default", dict(tile_h=8, tile_w=16)),
+    "camera 1x128": ("default", dict(tile_h=1, tile_w=128)),
+    "camera 128x128": ("default", dict(tile_h=128, tile_w=128)),
+    "quantised, shadow 16h x 24w": ("quantised", dict(shadow_tile=24, shadow_tile_h=16)),
+    "deferred, shadow 16h x 24w": ("deferred", dict(shadow_tile=24, shadow_tile_h=16)),
+}
+TILE_PATHS = {"default": ({}, DEFAULT_PATH), "quantised": (dict(pcf_row_cap=ENTRY_ROWS), QUANT_PATH),
+              "deferred": (dict(fused_shade=False), DEFERRED_PATH)}
+# 7b: real-size frame 0 at these tiles, each with its own tuned pair caps.
+REAL_TILES = {"shadow 16x16": dict(shadow_tile=16), "shadow 32x32": dict(shadow_tile=32),
+              "shadow 128x128": dict(shadow_tile=128), "camera 8x16": dict(tile_h=8, tile_w=16),
+              "camera 128x128": dict(tile_h=128, tile_w=128)}
+# 7c: the real-size frame 0 as this many slabs at 7b's shadow tile 32.
+TILE_SLABS = 4
+# 7d: the CLI's --config.
+CLI_TILE_CONFIG = {"shadow_tile": 16}
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -2287,6 +2331,176 @@ def run_debug_checks(entry_img, bufs, config, frame0):
     finally:
         enable_debug_checks(False)
 
+def run_entry_tiles(entry_img):
+    """7a: the entry scene on the card at each tile of TILE_CASES: K1 twice
+    (the shadow and the camera pass) and each kernel of the path, none of
+    another's; each frame bit-equal to the path's entry frame at the 64 x
+    64 tiles (``entry_img`` on the default path) and within 1 LSB of the
+    port's CPU frame at that tile; K1 on the frames' calls and on
+    utils/synthetic.k1_tiles at each of K1_NEW_TILES, with and without the
+    ibuf, bit-equal to its plain version, each in one launch."""
+    import dataclasses
+
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.ops import raster_tiles
+    from arctic_tpu_torch.utils import kernels, synthetic
+
+    base = entry_scene("cpu")[0]
+    cpu_bufs = entry_scene("cpu")[2]
+    want = {"default": entry_img}
+    for name, (fields, path) in TILE_PATHS.items():
+        if name not in want:
+            want[name] = entry_frame(dataclasses.replace(base, **fields), label=f"7a {name} 64x64",
+                                     path=path)[0]
+    recorded = []
+    for label, (name, tile) in TILE_CASES.items():
+        fields, path = TILE_PATHS[name]
+        config = dataclasses.replace(base, **fields, **tile)
+        label = f"7a entry, {label}"
+        with kernels.record_calls() as calls:
+            img, stats, counts, _, _, params, settings = entry_frame(config, label=label,
+                                                                     path=path)
+        if counts["raster_tiles"] != 2:
+            raise RuntimeError(f"{label}: K1 launched {counts['raster_tiles']} times, not 2")
+        same_frame(img, want[name], label, f"the {name} entry frame at 64 x 64 tiles")
+        img_cpu, stats_cpu = pipeline.render_frame_stats(cpu_bufs, params, settings, config)
+        lsb_gate(img, img_cpu.numpy(), label, "the port's CPU frame at that tile")
+        pairs = [k for k in int_stats(stats) if "pair" in k]
+        if any(int(stats[k]) != int(stats_cpu[k]) for k in pairs):
+            raise RuntimeError(f"{label}: pair stats {int_stats(stats)} != CPU "
+                               f"{int_stats(stats_cpu)}")
+        recorded += calls["raster_tiles"]
+        log(f"{label}: bit-equal to the {name} entry frame at 64 x 64 tiles; stats "
+            f"{int_stats(stats)}")
+    compare_kernels({"raster_tiles": recorded}, "7a entry tiles", ("raster_tiles",))
+    for th, tw in synthetic.K1_NEW_TILES:
+        for depth_only in (False, True):
+            args, kw = synthetic.k1_tiles(torch.device("cuda"), th, tw, depth_only)
+            kernels.reset_launch_counts()
+            got = _tensors(raster_tiles.raster_tiles(*args, **kw))
+            torch.cuda.synchronize()
+            launches = raster_tiles.raster_tiles.launches
+            want_t = _tensors(raster_tiles.raster_tiles_plain(*args, **kw))
+            errs = [max_abs_diff(a, b) for a, b in zip(got, want_t)]
+            bh, bw, rh, rw = raster_tiles.block_layout(th, tw)
+            what = f"7a K1 on synthetic.k1_tiles {th}x{tw} {'depth only' if depth_only else 'ibuf'}"
+            if launches != 1 or len(got) != len(want_t) or any(errs):
+                raise RuntimeError(f"{what}: {launches} launches, max errors {errs}")
+            log(f"{what}: one launch, bit-equal to plain ({bh}x{bw} sub-tiles of {rh}x{rw} "
+                f"rectangles, {int(args[3][-1])} pairs)")
+
+
+def run_real_tiles(bufs, frame0, qframe0, qconfig):
+    """7b: real-size frame 0 at each tile of REAL_TILES, pair caps from
+    autotune_pair_caps(margin=1.4) over bench.py's 20 viewpoints at that
+    tile: K1 twice, each frame bit-equal to phase 4's frame 0
+    (``frame0``); K1 bit-equal to its plain version on the frame's calls,
+    its CUDA-event ms, plain ms and bound per pass and the pairs per pass
+    printed; then the quantised frame 0 at shadow tile 32 (4b's row cap,
+    ``qconfig``) bit-equal to 4b's (``qframe0``). Returns the shadow-32
+    config (7c)."""
+    import dataclasses
+
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.utils import kernels
+
+    params, settings = real_params(0)
+    configs, rows = {}, []
+    for label, tile in REAL_TILES.items():
+        config = configs[label] = tune_caps(bufs, f"7b {label}", **tile)
+        render = pipeline.make_renderer_stats(config)
+        kernels.reset_launch_counts()
+        with kernels.record_calls() as calls:
+            img, stats = render(bufs, params, settings)
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check_launches(counts, DEFAULT_PATH, f"7b {label}",
+                       absent=("tile_tap_resolve", "transpose_pack_rows"))
+        if counts["raster_tiles"] != 2:
+            raise RuntimeError(f"7b {label}: K1 launched {counts['raster_tiles']} times, not 2")
+        pipeline.check_stats(stats)
+        same_frame(img, frame0, f"7b real-size frame 0, {label}", "phase 4's frame 0")
+        t = compare_kernels(calls, f"7b {label}", ("raster_tiles",), timed=("raster_tiles",))
+        st = int_stats(stats)
+        rows.append(dict(tile=label, ms=round(t["raster_tiles"]["ms"], 4),
+                         bound_ms=round(t["raster_tiles"]["bound_ms"], 4),
+                         shadow_pairs=st["shadow_pairs"], cam_pairs=st["cam_pairs"]))
+        log(f"7b real-size frame 0, {label}: bit-equal to phase 4's frame 0; pairs shadow "
+            f"{st['shadow_pairs']}, camera {st['cam_pairs']}; caps shadow "
+            f"{st['shadow_pair_cap']}, camera {st['cam_pair_cap']}")
+    log(f"7b K1 a frame at each tile (both passes; per pass above): {rows}")
+    config = dataclasses.replace(configs["shadow 32x32"], pcf_row_cap=qconfig.pcf_row_cap)
+    kernels.reset_launch_counts()
+    img, stats = pipeline.make_renderer_stats(config)(bufs, params, settings)
+    torch.cuda.synchronize()
+    check_launches(kernels.launch_counts(), QUANT_PATH, "7b quantised, shadow 32x32")
+    pipeline.check_stats(stats)
+    same_frame(img, qframe0, "7b quantised real-size frame 0, shadow 32x32", "4b's frame 0")
+    log(f"7b quantised real-size frame 0, shadow 32x32 (row cap {config.pcf_row_cap}): "
+        f"bit-equal to 4b's frame 0; pcf_rows {int(stats['pcf_rows'])}")
+    return configs["shadow 32x32"]
+
+
+def run_real_tile_slabs(bufs, config, frame0):
+    """7c: real-size frame 0 at 7b's shadow tile 32 (``config``) as
+    TILE_SLABS slabs: bit-equal to phase 4's frame 0, each rank's K1 on its
+    shadow slab from pixel row rank * sh_rows * 32."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.parallel import sharding
+    from arctic_tpu_torch.utils import kernels
+
+    params, settings = real_params(0)
+    label = f"7c real-size frame 0, shadow 32x32, as {TILE_SLABS} slabs"
+    layout = sharding.slab_layout(config, TILE_SLABS)
+    with kernels.record_calls() as calls:
+        img, st, _ = sharding.render_frame_slabs_with_map(bufs, params, settings, config,
+                                                          TILE_SLABS)
+        torch.cuda.synchronize()
+    pipeline.check_stats(st)
+    k1_rows = [kw["row0"] for _, kw in calls["raster_tiles"][:TILE_SLABS]]
+    if k1_rows != [r * layout.sh_rows * config.shadow_th for r in range(TILE_SLABS)]:
+        raise RuntimeError(f"{label}: K1's shadow slabs start at rows {k1_rows}")
+    same_frame(img, frame0, label, "phase 4's frame 0")
+    log(f"{label} ({layout.sh_tile_rows} shadow tile rows, {layout.sh_rows} a rank; K1 shadow "
+        f"row0 {k1_rows}): bit-equal to phase 4's frame 0; stats {int_stats(st)}")
+
+
+def run_cli_tiles(glb, want):
+    """7d: the CLI with a --config of CLI_TILE_CONFIG on run_cli's GLB at
+    the entry size and camera: K1 launched, its PNG bit-equal to run_cli's
+    in-process frame (``want``, the default tiles')."""
+    import torch
+
+    from arctic_tpu_torch.app import cli
+    from arctic_tpu_torch.io.images import load_ldr
+    from arctic_tpu_torch.utils import kernels
+
+    w, h, s = ENTRY["width"], ENTRY["height"], ENTRY["shadow"]
+    folder = os.path.join(OUT_DIR, "cli")
+    cfg, out = os.path.join(folder, "tiles.json"), os.path.join(folder, "tiles.png")
+    with open(cfg, "w") as f:
+        json.dump(CLI_TILE_CONFIG, f)
+    cam = ",".join(str(v) for v in ENTRY["eye"] + ENTRY["rot"])
+    label = f"7d CLI --config {json.dumps(CLI_TILE_CONFIG)}"
+    kernels.reset_launch_counts()
+    rc = cli.main(["render", glb, "--width", str(w), "--height", str(h), "--shadow-size", str(s),
+                   f"--camera={cam}", "--config", cfg, "--out", out])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if rc != 0:
+        raise RuntimeError(f"{label}: the CLI returned {rc}")
+    check_launches(counts, DEFAULT_PATH, label, absent=("tile_tap_resolve", "transpose_pack_rows"))
+    same_frame(load_ldr(out)[..., :3], want, label, "the default tiles' in-process frame")
+    log(f"{label}: PNG bit-equal to the default tiles' in-process frame of the GLB; launches "
+        f"{counts}")
+
+
 def once_ms(fn) -> float:
     """CUDA-event ms of one call of ``fn`` (no warm-up: for the lockstep plain
     K14, whose runs take seconds)."""
@@ -2890,6 +3104,7 @@ def main() -> int:
     # the same retained inputs as before; then the full-stack route and 4f.
     summary, real_calls, counts, real_imgs = run_real(dev, bufs, base, profile)
     qsummary, qreal_calls, qcounts, uncached, qconfig = run_real_quant(dev, bufs, base, profile)
+    qreal0 = uncached[0]
     csummary = run_cached(dev, bufs, qconfig, uncached, profile)
     tsummary, treal_calls, tcounts, tconfig, tex_imgs = run_textured(dev, profile)
     fsummary, freal_calls, fcounts = run_full_stack(dev, bufs, base, real_imgs, profile)
@@ -2954,6 +3169,11 @@ def main() -> int:
     run_multi_card(cli_glb, cli_img)
     run_viewer()
     run_debug_checks(entry_img, bufs, base, real0)
+    # The shadow and camera tiles after every earlier phase, for the same
+    # reason (7a-7d).
+    run_entry_tiles(entry_img)
+    run_real_tile_slabs(bufs, run_real_tiles(bufs, real0, qreal0, qconfig), real0)
+    run_cli_tiles(cli_glb, cli_img)
     own = ("window_lut_q", "pcf_eval")
     entry_cmps = [
         compare_kernels(entry_calls, "entry", DEFAULT_PATH),

@@ -24,7 +24,7 @@ from arctic_tpu.utils import serialize as jserialize
 from arctic_tpu.utils.profiling import FrameStats as JFrameStats
 from arctic_tpu_torch.app.camera import FlyCamera
 from arctic_tpu_torch.app.cli import main
-from arctic_tpu_torch.core.config import UNPORTED_FIELDS, RenderConfig, config_from_dict
+from arctic_tpu_torch.core.config import RenderConfig, config_from_dict
 from arctic_tpu_torch.core.scene import (
     PointLights,
     default_scene_params,
@@ -129,8 +129,9 @@ def test_cli_renders_cornell(tmp_path, source):
 def test_cli_config_shadow_tile_and_ignored_fields(tmp_path):
     """A --config holding the JAX package's raster_chunk / select_chunk /
     tiles_per_step (which change no pixel) and its default shadow tile
-    renders the default config's frame, bit for bit; another shadow tile
-    raises before the scene is built."""
+    renders the default config's frame, bit for bit, and so does one with a
+    128-wide, 32-high shadow tile; a tile the JAX package refuses raises
+    before the scene is built."""
     cfg = tmp_path / "config.json"
     cfg.write_text(json.dumps(dict(raster_chunk=64, select_chunk=32, tiles_per_step=4,
                                    shadow_tile=64, shadow_tile_h=None, fused_shade=True)))
@@ -138,7 +139,10 @@ def test_cli_config_shadow_tile_and_ignored_fields(tmp_path):
     tuned = _render(["--procedural", "cornell", "--config", str(cfg)], tmp_path / "b.png")
     np.testing.assert_array_equal(tuned, base)
     cfg.write_text(json.dumps(dict(shadow_tile=128, shadow_tile_h=32)))
-    with pytest.raises(RenderError, match="shadow_tile"):
+    tiled = _render(["--procedural", "cornell", "--config", str(cfg)], tmp_path / "c.png")
+    np.testing.assert_array_equal(tiled, base)
+    cfg.write_text(json.dumps(dict(shadow_tile=24)))
+    with pytest.raises(RenderError, match="shadow tile .* 128-pixel rows"):
         main(["render", str(tmp_path / "missing.glb"), "--device", "cpu", "--config", str(cfg)])
 
 
@@ -206,15 +210,6 @@ def test_cli_ported_flags_render(tmp_path, flag):
         assert np.abs(img.astype(int) - default.astype(int)).max() > 2
 
 
-@pytest.mark.parametrize("field", sorted(UNPORTED_FIELDS))
-def test_config_unported_fields_raise(field):
-    default, _ = UNPORTED_FIELDS[field]
-    assert config_from_dict({field: default}) == RenderConfig()
-    other = (32,) if default is None else default // 2 if type(default) is int else not default
-    with pytest.raises(RenderError, match=field):
-        config_from_dict({field: other})
-
-
 @pytest.mark.parametrize(
     "field", ["force_bruteforce", "fused_shade", "ibl_specular", "spotlights", "debug_overflow",
               "rt_light_shadows", "hdr_half_round", "sun_frustum_cull"]
@@ -246,12 +241,12 @@ def test_config_tex_group_caps():
 
 
 def test_config_tiles_and_unknown_fields():
-    """The shadow tile is the JAX default 64 x 64: other tiles and names
-    neither package has raise."""
+    """The shadow tile defaults to the JAX default 64 x 64 and other tiles
+    carry over; names neither package has raise."""
     assert config_from_dict(dict(shadow_tile=64, shadow_tile_h=None)) == RenderConfig()
     for tile in (dict(shadow_tile=32), dict(shadow_tile_h=32), dict(shadow_tile=64, shadow_tile_h=16)):
-        with pytest.raises(RenderError, match="shadow_tile"):
-            config_from_dict(tile)
+        assert config_from_dict(tile) == RenderConfig(**tile)
+    assert (RenderConfig(shadow_tile=32).shadow_th, RenderConfig(shadow_tile_h=16).shadow_th) == (32, 16)
     with pytest.raises(RenderError, match="no field"):
         config_from_dict(dict(shadow_tiles=64))
 

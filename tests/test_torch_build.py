@@ -21,7 +21,6 @@ from arctic_tpu.io import build as jbuild
 from arctic_tpu.io import procedural as jproc
 from arctic_tpu_torch.io import build, procedural
 from arctic_tpu_torch.utils import convert
-from arctic_tpu_torch.utils.errors import RenderError
 
 SCENES = {"cornell": 256, "helmet": 1024}
 
@@ -167,12 +166,12 @@ def test_convert_render_config():
     # lut_y_skip changes no pixel (only table rows no window reads): accepted.
     tc = convert.render_config(JRenderConfig(pcf_row_cap=4096, lut_y_skip=False))
     assert tc.pcf_row_cap == 4096 and not hasattr(tc, "lut_y_skip")
-    # The f16 HDR round and the sun-frustum cull carry over off their
-    # defaults; another shadow tile is a path the port does not have.
+    # The f16 HDR round, the sun-frustum cull and the shadow tile carry over
+    # off their defaults.
     tc = convert.render_config(JRenderConfig(hdr_half_round=False, sun_frustum_cull=False))
     assert not tc.hdr_half_round and not tc.sun_frustum_cull
-    with pytest.raises(RenderError, match="shadow_tile"):
-        convert.render_config(JRenderConfig(shadow_tile=32))
+    tc = convert.render_config(JRenderConfig(shadow_tile=32, shadow_tile_h=16))
+    assert (tc.shadow_tile, tc.shadow_tile_h, tc.shadow_th) == (32, 16, 16)
     # The grouped tile route's caps and the ray-traced light shadows carry over.
     tc = convert.render_config(JRenderConfig(tex_group_caps=(64, 32, 96), rt_light_shadows=True))
     assert tc.tex_group_caps == (64, 32, 96) and tc.rt_light_shadows

@@ -366,11 +366,17 @@ def test_shade_row_kernel_attributes(cuda, name):
 
 
 # (tile_h, tile_w, depth_only): the sub-tile and its warp rectangles K1
-# derives from the tile's sides — one 16x16 block, 16x16 sub-tiles of
-# square, wide and tall tiles (a side of 48), 64x4 sub-tiles of a 12x64 tile,
-# one 32x8 block of 8x4 rectangles, 128x2 sub-tiles of 16x2 rectangles.
+# derives from the tile's sides (raster_tiles.block_layout) — one 16x16
+# block, 16x16 sub-tiles of square, wide and tall tiles (a side of 48), 64x4
+# sub-tiles of a 12x64 tile, one 32x8 block of 8x4 rectangles, 128x2
+# sub-tiles of 16x2 rectangles; then sub-tiles that hang over the tile (a
+# 128-pixel tile in half a 16x16 block, a 1-pixel row in a 128x2 block, a
+# 1-pixel column in a 2x128 one, 16x24 in two 16x16 blocks) and tiles of
+# 8,192 to 65,536 pixels.
 TILE_SHAPES = [(16, 16, False), (32, 32, False), (16, 64, False), (48, 16, False),
-               (12, 64, False), (8, 32, True), (2, 128, True), (64, 64, True)]
+               (12, 64, False), (8, 32, True), (2, 128, True), (64, 64, True),
+               (8, 16, False), (16, 8, False), (1, 128, False), (64, 128, False),
+               (128, 128, False), (128, 1, True), (16, 24, True), (256, 256, True)]
 
 
 @pytest.mark.parametrize("tile_h,tile_w,depth_only", TILE_SHAPES)

@@ -5,9 +5,9 @@ the JAX package's tests hold them (tests/test_cull.py:88-130).
   pairs, on a camera close in over one corner where the rect really culls
   (the counts say so, in measure_pair_counts and in the frame's stats),
   and on a camera looking up past all geometry (an empty rect: no shadow
-  pairs at all). JAX's test takes 16-pixel shadow tiles on a 256^2 map;
-  the port's shadow tile is 64 pixels, so the map is 1024^2, the same 16 x
-  16 tile grid.
+  pairs at all). Both on JAX's own case, 16-pixel shadow tiles on a 256^2
+  map, and on a 1024^2 map of the default 64-pixel tiles (the same 16 x 16
+  tile grid).
 - The f16 HDR round off: the port's frame is within 1 u8 LSB of the JAX
   package's frame with the round off, on < 1% of the pixels (the gate of
   test_torch_pipeline), and within 1 LSB of the port's rounded frame. The
@@ -37,7 +37,7 @@ from arctic_tpu_torch.io import build, procedural
 from arctic_tpu_torch.models import pipeline
 from arctic_tpu_torch.utils import convert
 
-W, H, SHADOW = 160, 120, 1024
+W, H = 160, 120
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,13 +62,14 @@ def _params(eye, rot):
     return p
 
 
+@pytest.mark.parametrize("shadow, tile", [(1024, 64), (256, 16)], ids=["map1024", "map256_tile16"])
 @pytest.mark.parametrize("eye, rot, empty", [
     ([1.0, 0.5, 1.0], [-30.0, -120.0], False),  # close in over one corner
     ([0.0, 30.0, 0.0], [89.0, 0.0], True),  # straight up past all geometry
 ], ids=["corner", "sky"])
-def test_cull_off_frame_bit_identical(bufs, eye, rot, empty):
+def test_cull_off_frame_bit_identical(bufs, eye, rot, empty, shadow, tile):
     p = _params(eye, rot)
-    on = RenderConfig(width=W, height=H, shadow_size=SHADOW)
+    on = RenderConfig(width=W, height=H, shadow_size=shadow, shadow_tile=tile)
     off = dataclasses.replace(on, sun_frustum_cull=False)
     assert on.sun_frustum_cull
     _, sh_on = pipeline.measure_pair_counts(bufs, p, on)

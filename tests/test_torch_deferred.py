@@ -238,7 +238,7 @@ def test_debug_overflow_logs_the_pass(scene, caplog):
     warning from render_frame_stats, with its pairs and cap; without the
     flag nothing is logged, and check_stats raises either way."""
     tb, tp, ts = scene["port"]
-    config = RenderConfig(width=W, height=H, shadow_size=SHADOW, tile_h=4, tile_w=4,
+    config = RenderConfig(width=W, height=H, shadow_size=SHADOW, tile_h=1, tile_w=128,
                           pair_cap_cam=1, fused_shade=False)
     with caplog.at_level(logging.WARNING):
         _, stats = pipeline.render_frame_stats(tb, tp, ts, config)

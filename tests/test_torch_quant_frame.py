@@ -92,7 +92,6 @@ def test_cull_rect_and_band_match_jax(scene):
     """The shadow pass's tile rect and the in-frame table's start_y band
     equal the JAX package's shadow_cull_rect on the frame's matrices."""
     from arctic_tpu.ops import cull as jcull
-    from arctic_tpu_torch.core.config import SHADOW_TILE
 
     bufs, params, settings, config = scene["port"]
     geom = bufs.geometry
@@ -102,8 +101,8 @@ def test_cull_rect_and_band_match_jax(scene):
     rect, band = pipeline.sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
     lo, hi = pipeline.scene_aabb(wc, tri_valid)
     jrect, jband = jcull.shadow_cull_rect(
-        *(jnp.asarray(t.numpy()) for t in (cam_pv, sun_pv, lo, hi)), S, SHADOW_TILE,
-        SHADOW_TILE, with_y_band=True,
+        *(jnp.asarray(t.numpy()) for t in (cam_pv, sun_pv, lo, hi)), S, config.shadow_th,
+        config.shadow_tile, with_y_band=True,
     )
     assert [int(v) for v in rect] == [int(v) for v in jrect]
     assert band.dtype == torch.int32 and band.tolist() == [int(v) for v in jband]

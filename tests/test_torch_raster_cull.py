@@ -10,6 +10,8 @@ accepts the pair, and culling each sub-tile's list before the plain raster
 must give the plain raster's zbuf and ibuf exactly.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -170,29 +172,36 @@ def test_block_rejects_adversarial_planes(case):
 
 
 def _cull_then_plain(args, kw, bh, bw):
-    """K1's plain version over the lists culled per bh x bw sub-tile: each
-    sub-tile becomes a tile of its own whose list keeps, in list order, the
-    parent tile's pairs that block_rejects does not reject."""
+    """K1's plain version over the lists culled per bh x bw sub-tile, cut to
+    the tile as K1 clips the sub-tiles on a tile's right and bottom edges:
+    the buffer is cut into cells (the gcd of the tile's and the sub-tile's
+    sides), each a tile of its own whose list keeps, in list order, the
+    pairs of its tile that block_rejects does not reject for its sub-tile.
+    Returns the plain raster of that and the kept pairs over all sub-tiles."""
     rows, lane0, sorted_slot, tile_start, tiles_x, tiles_y, th, tw = args
-    sx, sy = tw // bw, th // bh
-    sub_tiles_x = tiles_x * sx
-    kept = [None] * (sub_tiles_x * tiles_y * sy)
+    gh, gw = math.gcd(th, bh), math.gcd(tw, bw)
+    cells_x = tiles_x * tw // gw
+    kept = [None] * (cells_x * tiles_y * th // gh)
+    n_kept = 0
     for t in range(tiles_x * tiles_y):
         seg = sorted_slot[int(tile_start[t]) : int(tile_start[t + 1])]
         r12 = rows[seg.long(), lane0 : lane0 + 12]
-        for j in range(sy):
-            for i in range(sx):
-                x0 = (t % tiles_x) * tw + i * bw
-                y0 = (t // tiles_x) * th + j * bh
-                rej = raster_tiles.block_rejects(r12, *_rect(x0, y0, bw, bh))
-                kept[(y0 // bh) * sub_tiles_x + x0 // bw] = seg[~rej]
+        for y in range(0, th, bh):
+            for x in range(0, tw, bw):
+                x0, y0 = (t % tiles_x) * tw + x, (t // tiles_x) * th + y
+                w, h = min(bw, tw - x), min(bh, th - y)
+                keep = seg[~raster_tiles.block_rejects(r12, *_rect(x0, y0, w, h))]
+                n_kept += keep.numel()
+                for cy in range(y0 // gh, (y0 + h) // gh):
+                    for cx in range(x0 // gw, (x0 + w) // gw):
+                        kept[cy * cells_x + cx] = keep
     counts = torch.tensor([0] + [k.numel() for k in kept])
     new_start = torch.cumsum(counts, 0).to(torch.int32)
     new_slot = torch.cat(kept).to(torch.int32)
     out = raster_tiles.raster_tiles_plain(
-        rows, lane0, new_slot, new_start, sub_tiles_x, tiles_y * sy, bh, bw, **kw
+        rows, lane0, new_slot, new_start, cells_x, len(kept) // cells_x, gh, gw, **kw
     )
-    return out, int(new_start[-1])
+    return out, n_kept
 
 
 @pytest.fixture(scope="module")
@@ -218,17 +227,23 @@ def test_cull_then_plain_equals_plain_on_dense_tile(dense_tile, bh, bw):
     assert int((ibuf >= 0).sum()) == 64 * 64
 
 
-# (tile_h, tile_w, sub-tile h, sub-tile w, depth_only): the sub-tile K1's
-# launcher picks for each tile shape (csrc/raster_tiles.cu, squarest).
+# (tile_h, tile_w, sub-tile h, sub-tile w, depth_only): the sub-tile K1
+# takes for each tile shape (raster_tiles.block_layout): those of
+# utils/synthetic.K1_TILES tile their tile exactly; those of K1_NEW_TILES
+# up to 8,192 pixels hang over its right or bottom edge, or both.
 TILE_SHAPES = [(16, 16, 16, 16, False), (32, 32, 16, 16, False), (16, 64, 16, 16, False),
                (48, 16, 16, 16, False), (12, 64, 4, 64, False), (8, 32, 8, 32, True),
-               (2, 128, 2, 128, True), (64, 64, 16, 16, True)]
+               (2, 128, 2, 128, True), (64, 64, 16, 16, True),
+               (8, 16, 16, 16, False), (16, 8, 16, 16, True), (1, 128, 2, 128, False),
+               (128, 1, 128, 2, True), (16, 24, 16, 16, True), (64, 128, 16, 16, False)]
 
 
 @pytest.mark.parametrize("th,tw,bh,bw,depth_only", TILE_SHAPES)
 def test_cull_then_plain_equals_plain_at_every_tile_shape(th, tw, bh, bw, depth_only):
     """utils/synthetic.k1_tiles' 3 x 2 grid of th x tw tiles: culling each
-    sub-tile's list first gives the plain raster's zbuf and ibuf exactly."""
+    sub-tile's list first, the edge sub-tiles cut to the tile, gives the
+    plain raster's zbuf and ibuf exactly."""
+    assert raster_tiles.block_layout(th, tw)[:2] == (bh, bw)
     args, kw = synthetic.k1_tiles("cpu", th, tw, depth_only)
     zbuf, ibuf = raster_tiles.raster_tiles_plain(*args, **kw)
     (z2, i2), n_kept = _cull_then_plain(args, kw, bh, bw)
