@@ -22,6 +22,7 @@ from arctic_tpu_torch.models import pipeline
 from arctic_tpu_torch.ops import rt, sky
 from arctic_tpu_torch.ops.pbr import dot_cf, outgoing_radiance_cf
 from arctic_tpu_torch.utils.errors import RenderError, check_finite
+from arctic_tpu_torch.utils.profiling import named_scope
 
 
 def build_scene_bvh(buffers: SceneBuffers) -> rt.BVH:
@@ -54,85 +55,98 @@ def render_frame_rt(
     """Full ray-traced frame -> (H, W, 3) uint8 (JAX raytrace.py:40-140).
     The tile atlas has no sampler here, as in the JAX package."""
     atlas, env, geom = buffers.atlas, buffers.environment, buffers.geometry
-    if atlas.tiles is not None:
-        raise RenderError(
-            "ray-traced mode has no tile-atlas sampler (reference-scale texture sets skip "
-            "the per-slot quad tables); use the raster path"
-        )
-    pipeline.use_full_f32()
-    pipeline.check_frame_inputs(params, settings)
     h, w = config.height, config.width
     dev = buffers.device
-    eye = params.camera.eye.tolist()
 
-    origins, dirs = primary_rays(params.camera, h, w, dev)
-    hits = rt.trace(bvh, origins, _rays(dirs), width=w)
-    covered = (hits.tri >= 0).reshape(h, w)
-    tri = torch.clamp(hits.tri, min=0).long()
-    u, v = hits.u.reshape(h, w), hits.v.reshape(h, w)
-    bary = (1.0 - u - v, u, v)
+    # Six named_scope ranges, one after another, cover every statement that
+    # launches device work or waits for the card, so that a profiler trace
+    # charges each device span and idle gap to its pass.
+    with named_scope("rt_primary"):
+        if atlas.tiles is not None:
+            raise RenderError(
+                "ray-traced mode has no tile-atlas sampler (reference-scale texture sets skip "
+                "the per-slot quad tables); use the raster path"
+            )
+        pipeline.use_full_f32()
+        pipeline.check_frame_inputs(params, settings)
+        origins, dirs = primary_rays(params.camera, h, w, dev)
+        hits = rt.trace(bvh, origins, _rays(dirs), width=w)
+        covered = (hits.tri >= 0).reshape(h, w)
+        tri = torch.clamp(hits.tri, min=0).long()
+        u, v = hits.u.reshape(h, w), hits.v.reshape(h, w)
+        bary = (1.0 - u - v, u, v)
 
-    # Corner attributes of the hit triangle: world position, n, t, b, uv.
-    wc = pipeline.world_corners(geom)
-    sa = geom.tri_static_attrs
-    corners = [torch.stack([*wc[c], *sa[11 * c : 11 * c + 11]])[:, tri].view(14, h, w)
-               for c in range(3)]
-    a = bary[0] * corners[0] + bary[1] * corners[1] + bary[2] * corners[2]
-    wp, n_v, t_v, b_v = a[0:3], a[3:6], a[6:9], a[9:12]
-    matrow = geom.tri_matrow[:, tri].view(-1, h, w)
-    base_color, nm, mr = pipeline.material_taps(
-        atlas, lambda s: matrow[19:23] if s is None else matrow[4 * s : 4 * s + 4], a[12], a[13])
-    # A slot whose maps are all constant: the material row's constant in
-    # the texel type, the value every tap of it gives.
-    dt = atlas.texel_dtype
-    if nm is None:
-        nm = matrow[16:19].to(dt).float()
-    if mr is None:
-        mr = (matrow[13].to(dt).float(), matrow[14].to(dt).float())
-    nm = torch.cat([nm[0:1], 1.0 - nm[1:2], nm[2:3]]) * 2.0 - 1.0
-    n = t_v * nm[0:1] + b_v * nm[1:2] + n_v * nm[2:3]
-    n = n / torch.sqrt(dot_cf(n, n))
-    roughness, metalness = mr[0][None], mr[1][None]
+    with named_scope("rt_surface"):
+        # Corner attributes of the hit triangle: world position, n, t, b, uv.
+        wc = pipeline.world_corners(geom)
+        sa = geom.tri_static_attrs
+        corners = [torch.stack([*wc[c], *sa[11 * c : 11 * c + 11]])[:, tri].view(14, h, w)
+                   for c in range(3)]
+        a = bary[0] * corners[0] + bary[1] * corners[1] + bary[2] * corners[2]
+        wp, n_v, t_v, b_v = a[0:3], a[3:6], a[6:9], a[9:12]
+        matrow = geom.tri_matrow[:, tri].view(-1, h, w)
+        base_color, nm, mr = pipeline.material_taps(
+            atlas, lambda s: matrow[19:23] if s is None else matrow[4 * s : 4 * s + 4], a[12],
+            a[13])
+        # A slot whose maps are all constant: the material row's constant in
+        # the texel type, the value every tap of it gives.
+        dt = atlas.texel_dtype
+        if nm is None:
+            nm = matrow[16:19].to(dt).float()
+        if mr is None:
+            mr = (matrow[13].to(dt).float(), matrow[14].to(dt).float())
+        nm = torch.cat([nm[0:1], 1.0 - nm[1:2], nm[2:3]]) * 2.0 - 1.0
+        n = t_v * nm[0:1] + b_v * nm[1:2] + n_v * nm[2:3]
+        n = n / torch.sqrt(dot_cf(n, n))
+        roughness, metalness = mr[0][None], mr[1][None]
 
-    # Hard shadow: one any-hit ray toward the sun per pixel.
-    wi_sun = -params.sun.direction().to(dev)
-    shadow_org = _rays(wp + n * 1e-3)
-    occ = rt.trace(bvh, shadow_org, wi_sun.expand(h * w, 3).contiguous(), any_hit=True, width=w)
-    lit = torch.where((occ.tri >= 0).reshape(h, w) & covered, 0.0, 1.0)[None]
+    with named_scope("rt_sun_shadow"):
+        # Hard shadow: one any-hit ray toward the sun per pixel.
+        wi_sun = -params.sun.direction().to(dev)
+        shadow_org = _rays(wp + n * 1e-3)
+        occ = rt.trace(bvh, shadow_org, wi_sun.expand(h * w, 3).contiguous(), any_hit=True,
+                       width=w)
+        lit = torch.where((occ.tri >= 0).reshape(h, w) & covered, 0.0, 1.0)[None]
 
-    wo = torch.stack([eye[i] - wp[i] for i in range(3)])
-    wo = wo / torch.sqrt(dot_cf(wo, wo))
-    lo = lit * outgoing_radiance_cf(
-        n, wo, wi_sun[:, None, None], params.sun.color.to(dev)[:, None, None],
-        base_color, metalness, roughness,
-    )
-    lights = params.point_lights
-    for i in range(min(lights.count, MAX_POINT_LIGHTS)):
-        lpos = lights.position[i].tolist()
-        ldir = torch.stack([lpos[k] - wp[k] for k in range(3)])
-        dist = torch.clamp(torch.sqrt(dot_cf(ldir, ldir)), min=1e-12)
-        wi = ldir / dist
-        radiance = lights.color[i].to(dev)[:, None, None] / (dist * dist)
-        if config.spotlights and lights.spot_dir is not None:
-            outer, inv_range = lights.spot_cos[i].tolist()
-            cos_t = -dot_cf(wi, lights.spot_dir[i].to(dev)[:, None, None])
-            radiance = radiance * torch.clamp((cos_t - outer) * inv_range, 0.0, 1.0)
-        vis = lit
-        if config.rt_light_shadows:
-            # Occlusion toward the light, bounded at its distance so that
-            # geometry behind the light cannot block it.
-            locc = rt.trace(bvh, shadow_org, _rays(wi), t_max=dist.reshape(-1) - 2e-3,
-                            any_hit=True, width=w)
-            vis = torch.where((locc.tri >= 0).reshape(h, w), 0.0, 1.0)[None] * lit
-        lo = lo + vis * outgoing_radiance_cf(n, wo, wi, radiance, base_color, metalness,
-                                             roughness)
-    color = lo + float(params.ambient) * base_color
-    background = torch.stack(sky.sample_environment_cf(
-        pipeline.env_rows_bf16(buffers), env.block_grid, env.region, *dirs
-    ))
-    hdr = torch.where(covered[None], color, background)
-    check_finite("ray-traced shade", hdr=hdr)
-    return pipeline.post_process(hdr, settings, config).contiguous()
+    with named_scope("pbr_lights"):
+        eye = params.camera.eye.tolist()
+        wo = torch.stack([eye[i] - wp[i] for i in range(3)])
+        wo = wo / torch.sqrt(dot_cf(wo, wo))
+        lo = lit * outgoing_radiance_cf(
+            n, wo, wi_sun[:, None, None], params.sun.color.to(dev)[:, None, None],
+            base_color, metalness, roughness,
+        )
+        lights = params.point_lights
+        for i in range(min(lights.count, MAX_POINT_LIGHTS)):
+            lpos = lights.position[i].tolist()
+            ldir = torch.stack([lpos[k] - wp[k] for k in range(3)])
+            dist = torch.clamp(torch.sqrt(dot_cf(ldir, ldir)), min=1e-12)
+            wi = ldir / dist
+            radiance = lights.color[i].to(dev)[:, None, None] / (dist * dist)
+            if config.spotlights and lights.spot_dir is not None:
+                outer, inv_range = lights.spot_cos[i].tolist()
+                cos_t = -dot_cf(wi, lights.spot_dir[i].to(dev)[:, None, None])
+                radiance = radiance * torch.clamp((cos_t - outer) * inv_range, 0.0, 1.0)
+            vis = lit
+            if config.rt_light_shadows:
+                # Occlusion toward the light, bounded at its distance so that
+                # geometry behind the light cannot block it.
+                locc = rt.trace(bvh, shadow_org, _rays(wi), t_max=dist.reshape(-1) - 2e-3,
+                                any_hit=True, width=w)
+                vis = torch.where((locc.tri >= 0).reshape(h, w), 0.0, 1.0)[None] * lit
+            lo = lo + vis * outgoing_radiance_cf(n, wo, wi, radiance, base_color, metalness,
+                                                 roughness)
+        color = lo + float(params.ambient) * base_color
+
+    with named_scope("rt_sky"):
+        background = torch.stack(sky.sample_environment_cf(
+            pipeline.env_rows_bf16(buffers), env.block_grid, env.region, *dirs
+        ))
+        hdr = torch.where(covered[None], color, background)
+        check_finite("ray-traced shade", hdr=hdr)
+
+    with named_scope("post_process"):
+        return pipeline.post_process(hdr, settings, config).contiguous()
 
 
 def make_rt_renderer(config: RenderConfig, bvh: rt.BVH, device: torch.device | str = "cuda"):

@@ -2,16 +2,17 @@
 
 The reference's 1000-entry frame-time history behind its Stats window
 (app.hpp:24, app.cpp:404-453) becomes a ring buffer with a text summary;
-its Tracy zones become torch.profiler traces and record_function ranges.
+its Tracy zones become record_function ranges (named_scope), which a
+torch.profiler capture records.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import tempfile
 import time
 from collections import deque
+
+import torch
 
 FRAME_TIME_HISTORY_SIZE = 1000  # app.hpp:24
 
@@ -56,28 +57,16 @@ class FrameStats:
         )
 
 
-@contextlib.contextmanager
-def trace(log_dir: str | None = None):
-    """torch.profiler trace of a block (host, and the card where there is
-    one), written as a Chrome trace ``trace.json`` into ``log_dir`` (default
-    ``arctic_trace`` in the temporary directory) for Perfetto or
-    chrome://tracing — the Tracy-capture analogue. Yields ``log_dir``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "arctic_trace")
-    os.makedirs(log_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield log_dir
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+# The context named_scope returns while no profiler runs.
+_NO_SCOPE = contextlib.nullcontext()
 
 
 def named_scope(name: str):
-    """A torch.profiler.record_function range: a per-pass zone marker
-    (TracyD3D12Zone analogue; the frame's passes carry these names)."""
-    import torch
-
-    return torch.profiler.record_function(name)
+    """A torch.profiler.record_function range while a profiler runs (Kineto
+    or emit_nvtx): a per-pass zone marker (TracyD3D12Zone analogue; the
+    frame's passes carry these names). With every profiler off, a shared
+    no-op context: a record_function costs host time even then, and the
+    host paces the frame."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SCOPE

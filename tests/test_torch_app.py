@@ -370,12 +370,29 @@ def test_frame_stats_equals_jax():
     assert ours.tick() >= 0.0
 
 
-def test_render_guard_and_trace(tmp_path):
+def test_render_guard_and_trace():
     with pytest.raises(RenderError, match=r"render failed \(scene x\): ValueError: boom"):
         with render_guard("scene x"):
             raise ValueError("boom")
-    with profiling.trace(str(tmp_path)) as d:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with profiling.named_scope("pass_a"):
             torch.ones(4).sum()
-    assert d == str(tmp_path)
-    assert "pass_a" in (tmp_path / "trace.json").read_text()
+    [scope] = [e for e in prof.events() if e.name == "pass_a"]
+    assert "aten::sum" in {c.name for c in scope.cpu_children}
+
+
+def test_named_scope_enters_no_range_with_the_profiler_off(monkeypatch):
+    """Off, named_scope is one shared no-op context and enters no
+    record_function (which costs host time even with no profiler on); under
+    torch.profiler.profile the range is recorded."""
+    entered = []
+    record_function = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: entered.append(name) or record_function(name))
+    with profiling.named_scope("off"):
+        torch.ones(4).sum()
+    assert entered == [] and profiling.named_scope("a") is profiling.named_scope("b")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.named_scope("on"):
+            torch.ones(4).sum()
+    assert entered == ["on"] and "on" in {e.name for e in prof.events()}

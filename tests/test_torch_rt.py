@@ -434,6 +434,50 @@ def test_rt_frame_within_one_lsb_of_jax(frame):
     assert set(calls) == {"bvh_trace"} and len(calls["bvh_trace"]) == 2 + n_shadow
 
 
+RT_SPANS = ["rt_primary", "rt_surface", "rt_sun_shadow", "pbr_lights", "rt_sky", "post_process"]
+
+
+def test_rt_frame_spans_cover_its_work(monkeypatch):
+    """Under torch.profiler, the ray-traced frame's top-level ranges are its
+    six passes in order, and every aten op of the frame call runs inside
+    exactly one of them (the innermost range above it is one of the six).
+    The profiled frame replays the unprofiled frame's traversals (a clone
+    each, in place of K14's one launch): the lockstep walk of the CPU would
+    bury the trace under ~10^5 ops."""
+    tb = build.build_buffers(*procedural.cornell_like_scene(), tri_bucket=256, device="cpu")
+    bvh = raytrace.build_scene_bvh(tb)
+    params = convert.scene_params(_params([POINT, SPOT]))
+    settings = convert.settings(j_default_settings())
+    config = RenderConfig(width=W, height=H, shadow_size=SHADOW, spotlights=True,
+                          rt_light_shadows=True)
+    walks, trace = [], rt.trace
+    monkeypatch.setattr(rt, "trace", lambda *a, **k: walks.append(trace(*a, **k)) or walks[-1])
+    want = raytrace.render_frame_rt(tb, bvh, params, settings, config)
+    replay = iter(walks)
+    monkeypatch.setattr(rt, "trace", lambda *a, **k: rt.Hits(*(x.clone() for x in next(replay))))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("frame"):
+            got = raytrace.render_frame_rt(tb, bvh, params, settings, config)
+    assert torch.equal(got, want) and len(walks) == 4
+    events = prof.events()
+    [frame] = [e for e in events if e.name == "frame"]
+    ranges = [e for e in events if e.is_user_annotation]
+
+    def scope(e):
+        """The innermost user range above e."""
+        e = e.cpu_parent
+        while e is not None and e not in ranges:
+            e = e.cpu_parent
+        return e
+
+    top = sorted((e for e in ranges if scope(e) is frame), key=lambda e: e.time_range.start)
+    assert [e.name for e in top] == RT_SPANS
+    ops = [e for e in events if e.name.startswith("aten::")
+           and frame.time_range.start <= e.time_range.start <= frame.time_range.end]
+    assert len(ops) > 100
+    assert all(any(scope(e) is t for t in top) for e in ops)
+
+
 def test_rt_light_shadows_darken():
     """tests/test_raytrace.py's check on the port: the light behind the tall
     box only darkens, and does somewhere."""
