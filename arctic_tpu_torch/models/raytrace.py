@@ -5,9 +5,10 @@ pixel tile) give visibility with true barycentrics; one any-hit ray per
 pixel toward the sun gives a hard shadow that, like the raster frame's PCF
 term, also scales the point lights; with ``RenderConfig.rt_light_shadows``
 an any-hit ray toward each point light, bounded at its distance, shadows
-that light too. Spotlight cones act under ``spotlights``. Misses show the
-skybox; the f16 HDR round and the tonemap are the raster frame's. Planes
-are channel first.
+that light too. Spotlight cones act under ``spotlights``. The lighting (the
+sun, the point lights and the ambient term) is one launch of K15
+(ops/pbr.shade_lights) on the card. Misses show the skybox; the f16 HDR
+round and the tonemap are the raster frame's. Planes are channel first.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from arctic_tpu_torch.core.config import RenderConfig
 from arctic_tpu_torch.core.scene import MAX_POINT_LIGHTS, SceneBuffers, SceneParams, Settings
 from arctic_tpu_torch.models import pipeline
 from arctic_tpu_torch.ops import rt, sky
-from arctic_tpu_torch.ops.pbr import dot_cf, outgoing_radiance_cf
+from arctic_tpu_torch.ops.pbr import dot_cf, point_light_dir, shade_lights
 from arctic_tpu_torch.utils.errors import RenderError, check_finite
 from arctic_tpu_torch.utils.profiling import named_scope
 
@@ -46,6 +47,19 @@ def primary_rays(camera, height: int, width: int, device):
 def _rays(planes):
     """(3, ...) planes -> (R, 3) contiguous rays."""
     return planes.reshape(3, -1).T.contiguous()
+
+
+def light_visibility(bvh: rt.BVH, shadow_org, wp, lights, width: int):
+    """(L, H, W) f32, 1 where each point light sees the surface: an any-hit
+    ray from the offset origins toward it, bounded at its distance so that
+    geometry behind the light cannot block it; None without lights."""
+    vis = []
+    for i in range(min(lights.count, MAX_POINT_LIGHTS)):
+        wi, dist = point_light_dir(wp, lights.position[i])
+        locc = rt.trace(bvh, shadow_org, _rays(wi), t_max=dist.reshape(-1) - 2e-3,
+                        any_hit=True, width=width)
+        vis.append(torch.where((locc.tri >= 0).reshape(wp.shape[1:]), 0.0, 1.0))
+    return torch.stack(vis) if vis else None
 
 
 def render_frame_rt(
@@ -109,34 +123,11 @@ def render_frame_rt(
         lit = torch.where((occ.tri >= 0).reshape(h, w) & covered, 0.0, 1.0)[None]
 
     with named_scope("pbr_lights"):
-        eye = params.camera.eye.tolist()
-        wo = torch.stack([eye[i] - wp[i] for i in range(3)])
-        wo = wo / torch.sqrt(dot_cf(wo, wo))
-        lo = lit * outgoing_radiance_cf(
-            n, wo, wi_sun[:, None, None], params.sun.color.to(dev)[:, None, None],
-            base_color, metalness, roughness,
-        )
-        lights = params.point_lights
-        for i in range(min(lights.count, MAX_POINT_LIGHTS)):
-            lpos = lights.position[i].tolist()
-            ldir = torch.stack([lpos[k] - wp[k] for k in range(3)])
-            dist = torch.clamp(torch.sqrt(dot_cf(ldir, ldir)), min=1e-12)
-            wi = ldir / dist
-            radiance = lights.color[i].to(dev)[:, None, None] / (dist * dist)
-            if config.spotlights and lights.spot_dir is not None:
-                outer, inv_range = lights.spot_cos[i].tolist()
-                cos_t = -dot_cf(wi, lights.spot_dir[i].to(dev)[:, None, None])
-                radiance = radiance * torch.clamp((cos_t - outer) * inv_range, 0.0, 1.0)
-            vis = lit
-            if config.rt_light_shadows:
-                # Occlusion toward the light, bounded at its distance so that
-                # geometry behind the light cannot block it.
-                locc = rt.trace(bvh, shadow_org, _rays(wi), t_max=dist.reshape(-1) - 2e-3,
-                                any_hit=True, width=w)
-                vis = torch.where((locc.tri >= 0).reshape(h, w), 0.0, 1.0)[None] * lit
-            lo = lo + vis * outgoing_radiance_cf(n, wo, wi, radiance, base_color, metalness,
-                                                 roughness)
-        color = lo + float(params.ambient) * base_color
+        visibility = None
+        if config.rt_light_shadows:
+            visibility = light_visibility(bvh, shadow_org, wp, params.point_lights, w)
+        color = shade_lights(wp, n, base_color, metalness, roughness, lit, params,
+                             config.spotlights, visibility)
 
     with named_scope("rt_sky"):
         background = torch.stack(sky.sample_environment_cf(

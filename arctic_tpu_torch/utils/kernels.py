@@ -55,6 +55,9 @@ _SIGNATURES = {
     "arctic_window_lut": (_P, _I, _I, _I, _P, _P),
     "arctic_pcf_resolve": (_P, _I, _P, _P, _I, _P, _P),
     "arctic_bvh_trace": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # Seven planes, then host pointers to the strides and the packed frame
+    # parameters, which the launcher copies into the kernel's arguments.
+    "arctic_shade_lights": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
 }
 # C signatures of the queries (no stream); each returns its cudaError_t.
 _QUERIES = {
@@ -62,6 +65,7 @@ _QUERIES = {
     "arctic_bvh_trace_attributes": (_P,),
     "arctic_pack_shade_rows_attributes": (_P,),
     "arctic_pack_shade_rows_tm_attributes": (_P,),
+    "arctic_shade_lights_attributes": (_P,),
 }
 
 # Every registered kernel wrapper, in registration order.

@@ -507,3 +507,75 @@ def k14_inputs(device, case: str, any_hit: bool, seed: int = 0):
              torch.from_numpy(d).to(device), t_max, any_hit),
             {"width": IMAGE_W} if case == "image" else {})
 
+
+
+K15_CASES = ("lights_0", "lights_4", "lights_16", "spot", "spot_off", "visibility", "strided",
+             "nonfinite")
+# Pixels of a K15 case: neither side a multiple of a warp, and no multiple
+# of K15's 256-thread block.
+K15_H, K15_W = 37, 53
+
+
+def k15_inputs(device, case: str, seed: int = 0):
+    """One K15 call's (args, kwargs) for ``case`` on ``device``: (wp, n,
+    base_color, metalness, roughness, lit, params, spotlights, visibility)
+    over K15_H x K15_W pixels. Surface points around the lights, random unit
+    normals (about half of them facing away from any given light), base
+    colours in [0, 1], metalness and roughness with an eighth each at 0 and
+    at 1, lit 0 or 1; one pixel at the eye (wo = 0 / 0) and one at light 0
+    (the 1e-12 distance clamp). Cases: 0, 4 and 16 lights; 4 lights with
+    cones, read (``spot``) or not (``spot_off``); a visibility stack;
+    ``strided``: base colour, metalness and roughness as channels of one
+    interleaved (H, W, 8) tap (the frame's layout) and wp as rows of a
+    (14, H, W) stack; ``nonfinite``: NaN, +-inf and subnormal values among
+    the planes."""
+    from arctic_tpu_torch.core.scene import PointLights, default_scene_params, make_camera
+
+    rng = np.random.default_rng(seed)
+    hw = (K15_H, K15_W)
+    n_lights = {"lights_0": 0, "lights_16": 16}.get(case, 4)
+    cones = case in ("spot", "spot_off", "visibility")
+    rows = [(tuple(rng.uniform(-4, 4, 3)), tuple(rng.uniform(0, 60, 3)),
+             (tuple(rng.normal(0, 1, 3)), 10.0 + 3 * i, 25.0 + 3 * i) if cones and i % 4 else None)
+            for i in range(n_lights)]
+    params = default_scene_params(aspect=K15_W / K15_H)
+    params.camera = make_camera([0.5, 3.0, 6.0], [-20.0, -95.0], K15_W / K15_H)
+    params.point_lights = PointLights.from_list(rows, spots=cones)
+
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    wp = f32(rng.uniform(-4, 4, (3, *hw)))
+    wp[:, 0, 0] = params.camera.eye.numpy()
+    if n_lights:
+        wp[:, 0, 1] = params.point_lights.position[0].numpy()
+    n = rng.normal(0, 1, (3, *hw))
+    n = f32(n / np.linalg.norm(n, axis=0))
+    base = f32(rng.uniform(0, 1, (3, *hw)))
+    mr = f32(rng.uniform(0, 1, (2, *hw)))
+    pick = rng.integers(0, 8, (2, *hw))
+    mr[pick == 0] = 0.0
+    mr[pick == 1] = 1.0
+    lit = f32(rng.integers(0, 2, (1, *hw)))
+    if case == "nonfinite":
+        for plane in (wp, n, base, mr):
+            flat = plane.reshape(-1)
+            at = rng.choice(flat.size, 12, replace=False)
+            flat[at] = f32([np.nan, np.inf, -np.inf, 1e-40, -1e-40, 0.0, -0.0, 3e38, -3e38,
+                            np.nan, 1e-45, 1e30])
+    dev = [torch.from_numpy(a).to(device) for a in (wp, n, base, mr, lit)]
+    wp, n, base, mr, lit = dev
+    if case == "strided":
+        tap = torch.zeros((*hw, 8), dtype=torch.float32, device=device)
+        tap[..., 0:3] = base.movedim(0, -1)
+        tap[..., 5:7] = mr.movedim(0, -1)
+        tap = tap.movedim(-1, 0)  # (8, H, W), pixel stride 8
+        base, mr = tap[0:3], tap[5:7]
+        stack = torch.zeros((14, *hw), dtype=torch.float32, device=device)
+        stack[2:5] = wp
+        wp = stack[2:5]
+    visibility = None
+    if case == "visibility":
+        visibility = torch.from_numpy(f32(rng.integers(0, 2, (n_lights, *hw)))).to(device)
+    return (wp, n, base, mr[1][None], mr[0][None], lit, params, case in ("spot", "visibility"),
+            visibility), {}

@@ -5,7 +5,8 @@
 
 The real-size default scene comes through bench.py's GLB + HDR round trip
 (phase 4), and the CLI renders a GLB (phase 4g). The per-slot, unmerged
-and grouped texture routes and the ray-traced mode (K14 bvh_trace) run
+and grouped texture routes and the ray-traced mode (K14 bvh_trace, K15
+shade_lights) run
 after the others (3i-3l, 4j-4l); then the sharded frame, the viewer and
 the debug checks (6a-6f), and RenderConfig's shadow and camera tiles last
 (7a-7d). Four frame paths are driven first: the default one (exact f32 PCF; kernels K1
@@ -123,8 +124,8 @@ which raises on failure (exit code != 0):
    fallback cap making check_stats raise;
 3l. the ray-traced entry frame with the point light and a spotlight:
    primary and sun rays, then rt_light_shadows, then the cone too: K14 2
-   (+ 1 a light with rt_light_shadows) times and no other kernel, each
-   within 1 LSB of the port's CPU ray-traced frame on < 1% of the values;
+   (+ 1 a light with rt_light_shadows) times, K15 once and no other
+   kernel, each within 1 LSB of the port's CPU ray-traced frame on < 1% of the values;
 4j. the grouped tile route at real size on 4d's textured scene:
    plan_tex_groups over bench.py's 20 viewpoints, the scene rebuilt with
    the plan, autotune_tex_group_caps(margin=1.1), the fly-through (K9 G + 1
@@ -132,12 +133,13 @@ which raises on failure (exit code != 0):
    frame bit-equal to 4d's at its viewpoint; G, the caps, tex_fb_rows, the
    peak memory and the build and plan seconds printed;
 4k. the ray-traced mode on phase 4's loaded scene: the BVH's build
-   seconds, nodes and bytes, the fly-through (K14 twice a frame, no other
-   kernel), one frame with rt_light_shadows and the 4 lights (K14 six
-   times); on frame 0 the primary hit's triangle equals the raster ibuf's
-   (modulo the clip-slot duplication) on >= 99% of the pixels both cover
-   whose hit faces the camera, and on >= 99.9% of those off the edges of
-   the raster's triangles (the coverage mismatch share printed);
+   seconds, nodes and bytes, the fly-through (K14 twice a frame, K15 once,
+   no other kernel), one frame with rt_light_shadows and the 4 lights (K14
+   six times, K15 once with the visibility stack); on frame 0 the primary
+   hit's triangle equals the raster ibuf's (modulo the clip-slot
+   duplication) on >= 99% of the pixels both cover whose hit faces the
+   camera, and on >= 99.9% of those off the edges of the raster's
+   triangles (the coverage mismatch share printed);
 4l. the per-slot atlas at real size: the bench geometry with 24 materials
    of 192^2 diffuse and 96^2 normal maps, its own tuned caps, the
    fly-through (K1, K3, K4), frame 0 within 1 LSB of its deferred frame on
@@ -196,7 +198,9 @@ which raises on failure (exit code != 0):
    bit-equal to 4g's in-process frame;
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded; K14 on every
-   ray of the real-size calls, frame 0's and the light-shadow frame's; K1
+   ray of the real-size calls, frame 0's and the light-shadow frame's; K15
+   on both frames' calls, its CUDA-event ms, the plain version's and its
+   0.037 ms byte floor at 1920 x 1080 (the K15 gate); K1
    and K4 also on every slab call of 6b and 6c, row0 != 0 included): bit-exact
    equality, CUDA-event times of kernel and plain version at the real-size
    shapes (K1 also per call: camera, shadow), and each kernel's bound on
@@ -221,14 +225,17 @@ which raises on failure (exit code != 0):
    directions, grazing edges and faces, origins inside boxes, coplanar
    duplicates, per-ray t_max of 0 and inf, an empty scene, a 37 x 23
    camera image on K14's 8 x 4 warp tiles, NaN / inf ray components and a
-   scene with an infinite vertex), bit-exact against their plain versions.
+   scene with an infinite vertex; K15 on utils/synthetic.K15_CASES: 0, 4
+   and 16 lights, cones read or not, a visibility stack, interleaved tap
+   planes, NaN / inf / subnormal values), bit-exact against their plain
+   versions.
    K14's bound counts the node visits and triangle tests the plain version
    reports on every 64th ray, scaled to all rays; on the real-size primary
    and sun calls K14 is also timed and held bit-exact in linear order
    (width 0), and the plain run's per-ray visits give the warps' lockstep
    efficiency under both mappings. The registers, spill bytes, block size
    and blocks a SM of K3, K11 (the two instantiations of one kernel
-   template) and K14 are printed and join their kernels-line entries, and
+   template), K14 and K15 are printed and join their kernels-line entries, and
    after the build every kernel function's registers, local bytes and SASS
    instructions (cuobjdump) are printed. The real-size quad
    width and K8's live / listed rows are printed, and the share of the
@@ -301,9 +308,9 @@ REAL_SPOT = ((0.0, 8.0, 0.0), (200.0, 200.0, 200.0), ((0.0, -1.0, 0.0), 20.0, 35
 # default path's frame at the same viewpoint.
 DEFERRED_NEAR_SHARE = 0.99
 # The per-slot and unmerged routes' kernels (no K6, no K9); the ray-traced
-# frame's only kernel.
+# frame's kernels (K14 traces, K15 lights).
 PER_SLOT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp")
-RT_PATH = ("bvh_trace",)
+RT_PATH = ("bvh_trace", "shade_lights")
 # 3k: tests/test_tex_groups.py's six materials at 128 x 128 in groups of
 # at most 220 tile rows, laid out as three explicit groups.
 GROUPED_SIZE = 128
@@ -314,6 +321,13 @@ TEX_GROUP_MARGIN = 1.1
 # 4k: the lockstep plain version's work on every K14_SAMPLE-th real-size
 # ray, scaled by K14_SAMPLE, gives K14's bound.
 K14_SAMPLE = 64
+# K15's f32 operations a pixel (ops/pbr.shade_lights_plain's, each division
+# and square root one): wo and the ambient term, a GGX term, each point
+# light's direction, falloff and accumulation, and its cone.
+K15_PIXEL_OPS = 12 + 6 + 3
+K15_TERM_OPS = 110
+K15_LIGHT_OPS = 24
+K15_CONE_OPS = 12
 RT_AGREE_SHARE = 0.99
 RT_CORE_AGREE_SHARE = 0.999
 # 4l: 24 materials with 192^2 diffuse and metal-roughness maps and 96^2
@@ -1601,9 +1615,9 @@ def run_entry_rt():
     """3l: the ray-traced entry frame with the point light and the
     spotlight (POINT, SPOT): primary and sun rays, then with
     rt_light_shadows, then with the spotlight's cone too. Each launches K14
-    two times plus once a light under rt_light_shadows, and no other
-    kernel, and is within 1 LSB of the port's CPU ray-traced frame on < 1%
-    of the values. Returns the recorded K14 calls."""
+    two times plus once a light under rt_light_shadows, K15 once, and no
+    other kernel, and is within 1 LSB of the port's CPU ray-traced frame on
+    < 1% of the values. Returns the recorded K14 and K15 calls."""
     import dataclasses
 
     import numpy as np
@@ -1631,9 +1645,10 @@ def run_entry_rt():
         counts = kernels.launch_counts()
         want = 2 + (params.point_lights.count if cfg.rt_light_shadows else 0)
         log(f"{label} launches: {counts}")
-        check_launches(counts, RT_PATH, label, absent=tuple(k for k in counts if k != "bvh_trace"))
-        if counts["bvh_trace"] != want:
-            raise RuntimeError(f"{label}: K14 launched {counts['bvh_trace']} times, not {want}")
+        check_launches(counts, RT_PATH, label, absent=tuple(k for k in counts if k not in RT_PATH))
+        if counts["bvh_trace"] != want or counts["shade_lights"] != 1:
+            raise RuntimeError(f"{label}: K14 launched {counts['bvh_trace']} times, not {want}, "
+                               f"K15 {counts['shade_lights']}, not 1")
         img = img.cpu().numpy()
         ref = raytrace.make_rt_renderer(cfg, cpu_bvh, "cpu")(cpu_bufs, params, settings)
         lsb_gate(img, ref.numpy(), label, "the port's CPU ray-traced frame")
@@ -1641,7 +1656,8 @@ def run_entry_rt():
             raise RuntimeError(f"{label} frame is black")
         np.save(os.path.join(OUT_DIR, f"chip_smoke_entry_rt_{len(all_calls.get('bvh_trace', []))}.npy"),
                 img)
-        all_calls.setdefault("bvh_trace", []).extend(calls["bvh_trace"])
+        for name in RT_PATH:
+            all_calls.setdefault(name, []).extend(calls[name])
     return all_calls
 
 
@@ -1712,16 +1728,16 @@ def run_real_grouped(device, tex_config, tex_imgs, tex_median, profile: bool = F
 
 def run_real_rt(device, bufs, config, profile: bool = False):
     """4k: the ray-traced mode on phase 4's loaded scene: the BVH's build
-    seconds, nodes and bytes, the fly-through (K14 twice a frame, no other
-    kernel), one frame with rt_light_shadows and the 4 lights (K14 six
-    times); on frame 0 the primary hit's triangle equals the raster ibuf's
-    (the camera pass with ``config``'s caps, slots taken modulo the
+    seconds, nodes and bytes, the fly-through (K14 twice a frame, K15 once,
+    no other kernel), one frame with rt_light_shadows and the 4 lights (K14
+    six times, K15 once); on frame 0 the primary hit's triangle equals the
+    raster ibuf's (the camera pass with ``config``'s caps, slots taken modulo the
     triangle capacity) on >= RT_AGREE_SHARE of the pixels both cover
     whose hit faces the camera, and on >= RT_CORE_AGREE_SHARE of those off
     the raster's triangle edges.
-    Returns (summary, recorded K14 calls of frame 0 and of the light-shadow
-    frame, K14's work counted by the plain version on every K14_SAMPLE-th
-    ray of frame 0's calls)."""
+    Returns (summary, recorded K14 and K15 calls of frame 0 and of the
+    light-shadow frame, K14's work counted by the plain version on every
+    K14_SAMPLE-th ray of frame 0's calls)."""
     import dataclasses
 
     import numpy as np
@@ -1749,8 +1765,9 @@ def run_real_rt(device, bufs, config, profile: bool = False):
     frames = [real_params(i) for i in range(FLY_FRAMES)]
     absent = tuple(k for k in kernels.launch_counts() if k not in RT_PATH)
     times, _, imgs, counts, mem = fly_through(render, bufs, frames, RT_PATH, label, absent=absent)
-    if counts["bvh_trace"] != 2 * len(frames):
-        raise RuntimeError(f"K14 launched {counts['bvh_trace']} times in {len(frames)} frames")
+    if counts["bvh_trace"] != 2 * len(frames) or counts["shade_lights"] != len(frames):
+        raise RuntimeError(f"K14 launched {counts['bvh_trace']} times, K15 "
+                           f"{counts['shade_lights']} times in {len(frames)} frames")
     if any(im.mean() < 5.0 for im in imgs):
         raise RuntimeError(f"a {label} frame is black")
     if profile:
@@ -1771,8 +1788,9 @@ def run_real_rt(device, bufs, config, profile: bool = False):
     want = 2 + len(REAL_LIGHTS)
     log(f"{label} frame 0 with rt_light_shadows ({len(REAL_LIGHTS)} lights): {light_ms:.3f} ms, "
         f"K14 launched {lcount} times")
-    if lcount != want:
-        raise RuntimeError(f"{label}: K14 launched {lcount} times with light shadows, not {want}")
+    if lcount != want or kernels.launch_counts()["shade_lights"] != 1:
+        raise RuntimeError(f"{label}: K14 launched {lcount} times with light shadows, not {want}, "
+                           f"or K15 not once")
     d = (img0.to(torch.int32) - limg.to(torch.int32)).amax(dim=2)
     log(f"{label}: the light shadows darken {float((d > 0).double().mean()):.4%} of frame 0's "
         f"pixels, by up to {int(d.max())} LSB; {int((d < 0).sum())} pixels brighten")
@@ -1794,6 +1812,7 @@ def run_real_rt(device, bufs, config, profile: bool = False):
     log(f"{label} frames: median {summary['ms_per_frame_median']:.3f} ms/frame "
         f"(all {['%.3f' % t for t in times]}), {_mem(mem)}")
     summary["launches"] = counts["bvh_trace"]
+    summary["k15_launches"] = counts["shade_lights"]
     return summary, calls, lcalls, work_stats
 
 
@@ -2575,13 +2594,42 @@ def k14_timing(real_calls, work_stats) -> dict:
 
 
 def k14_synthetic_calls(device) -> dict:
-    """K14 on utils/synthetic.py's rays, closest and any hit."""
+    """K14 on utils/synthetic.py's rays, closest and any hit, and K15 on its
+    planes."""
     from arctic_tpu_torch.utils import synthetic
 
     calls = [synthetic.k14_inputs(device, case, any_hit)
              for case in synthetic.K14_CASES for any_hit in (False, True)]
-    log(f"synthetic inputs: K14 cases {', '.join(synthetic.K14_CASES)} (closest and any hit)")
-    return {"bvh_trace": calls}
+    log(f"synthetic inputs: K14 cases {', '.join(synthetic.K14_CASES)} (closest and any hit); "
+        f"K15 cases {', '.join(synthetic.K15_CASES)}")
+    return {"bvh_trace": calls,
+            "shade_lights": [synthetic.k15_inputs(device, case) for case in synthetic.K15_CASES]}
+
+
+def k15_gate(real_calls) -> dict:
+    """The K15 gate: K15 shade_lights on the real-size (1920 x 1080, 4
+    lights) ray-traced frame 0's inputs: bit-exact against its plain
+    version, its CUDA-event ms and device ms, the plain version's ms and
+    the byte floor (60 B a pixel over the HBM rate); K15's registers, spill
+    bytes, block and blocks a SM from the card's runtime."""
+    import torch
+
+    from arctic_tpu_torch.ops import pbr
+    from arctic_tpu_torch.utils import kernels
+
+    out = compare_kernels({"shade_lights": real_calls["shade_lights"]}, "ray-traced real-size",
+                          ("shade_lights",), timed=("shade_lights",))["shade_lights"]
+    (args, kw), = real_calls["shade_lights"]
+    dev_ms = device_ms(lambda: pbr.shade_lights(*args, **kw), 50)
+    attrs = kernels.attributes("arctic_shade_lights_attributes", torch.device("cuda"))
+    out["extra"] = dict(**attrs, device_ms=dev_ms)
+    log(f"K15 gate at {args[0].shape[2]} x {args[0].shape[1]}: bit-exact vs plain; kernel "
+        f"{out['ms']:.4f} ms (device {dev_ms:.4f} ms), plain {out['plain_ms']:.4f} ms, floor "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}), share "
+        f"{out['bound_ms'] / dev_ms:.2%} of the device time; {attrs['registers']} registers and "
+        f"{attrs['spill_bytes']} spill bytes a thread, {attrs['block']}-thread blocks, "
+        f"{attrs['blocks_per_sm']} a SM")
+    return {"shade_lights": out}
 
 
 RANGES = ("shadow_pass", "forward_visibility", "forward_shade_skybox", "pcf_shadow",
@@ -2788,6 +2836,18 @@ def work(name, args, kw):
     if name == "window_lut":
         src, s = args
         return 4 * s * s + 4 * (s + 4) * shadow.window_pitch(s), 0
+    if name == "shade_lights":
+        from arctic_tpu_torch.core.scene import MAX_POINT_LIGHTS
+        from arctic_tpu_torch.ops import pbr
+
+        wp, params, spotlights, visibility = args[0], args[6], args[7], args[8]
+        px = wp.shape[1] * wp.shape[2]
+        lights = min(params.point_lights.count, MAX_POINT_LIGHTS)
+        cones = spotlights and params.point_lights.spot_dir is not None
+        rows = 0 if visibility is None else lights
+        per_light = K15_TERM_OPS + K15_LIGHT_OPS + (K15_CONE_OPS if cones else 0) + bool(rows)
+        ops = K15_PIXEL_OPS + K15_TERM_OPS + lights * per_light
+        return (pbr.SHADE_BYTES + 4 * rows) * px, ops * px
     if name == "pcf_resolve":
         lut, start_y, start_x = args
         n = start_y.numel()
@@ -3186,7 +3246,10 @@ def main() -> int:
         compare_kernels(rt_entry_calls, "ray-traced entry", RT_PATH),
         compare_kernels(greal_calls, "grouped real-size", ("tile_tap_resolve",)),
         compare_kernels({"bvh_trace": rlight_calls["bvh_trace"][2:]},
-                        "ray-traced real-size light rays (every ray)", RT_PATH),
+                        "ray-traced real-size light rays (every ray)", ("bvh_trace",)),
+        compare_kernels({"shade_lights": rlight_calls["shade_lights"]},
+                        "ray-traced real-size with the light shadows' visibility",
+                        ("shade_lights",)),
         compare_kernels(slab_calls, "6b slabs (row0 != 0 but on rank 0)",
                         ("raster_tiles", "select_interp")),
         compare_kernels(real_slab_calls, "6c real-size slabs (row0 != 0 but on rank 0)",
@@ -3211,6 +3274,7 @@ def main() -> int:
         **compare_kernels(k13_calls(qreal_calls), "K13 on K8's penumbra rows", ("pcf_resolve",),
                           timed=("pcf_resolve",)),
         "bvh_trace": k14_timing(rreal_calls, rwork),
+        **k15_gate(rreal_calls),
     }
     synth = compare_kernels(synthetic_calls(dev), "synthetic",
                             ("raster_tiles", "pack_shade_rows", "pack_shade_rows_tm",
@@ -3228,6 +3292,7 @@ def main() -> int:
                 "tile_tap_resolve": tcounts["tile_tap_resolve"],
                 "transpose_pack_rows": fcounts["transpose_pack_rows"],
                 "window_lut": lcounts["window_lut"], "bvh_trace": rsummary["launches"],
+                "shade_lights": rsummary["k15_launches"],
                 **{k: 0 for k in NO_FRAME}}
     log(f"K11 pack_shade_rows_tm and K13 pcf_resolve: 0 frame launches (no frame calls them, "
         f"as in the JAX package); their rows in the kernels line come from their checks")

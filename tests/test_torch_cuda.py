@@ -1,6 +1,7 @@
-"""arctic_tpu_torch on the card: the twelve CUDA kernels against their
-plain torch versions (K1, K3, K6, K8, K11 and K14 also on the synthetic
-inputs of utils/synthetic.py), the ray-traced entry frame and the grouped tile
+"""arctic_tpu_torch on the card: the thirteen CUDA kernels against their
+plain torch versions (K1, K3, K6, K8, K11, K14 and K15 also on the synthetic
+inputs of utils/synthetic.py), the ray-traced entry frame (its lighting
+through K15 and through the plain version, bit-equal) and the grouped tile
 route (K9 once a group and once for the fallback), the entry frame as 2, 3
 and 8 slabs of tile rows (parallel/sharding.py: K1 and K4 with row0 != 0),
 and the entry frame, on the default path, on the
@@ -31,7 +32,12 @@ import pytest
 import torch
 
 from arctic_tpu_torch.core.config import RenderConfig
-from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
+from arctic_tpu_torch.core.scene import (
+    PointLights,
+    default_scene_params,
+    default_settings,
+    make_camera,
+)
 from arctic_tpu_torch.io.build import build_buffers
 from arctic_tpu_torch.io.procedural import cornell_like_scene
 from arctic_tpu_torch.models import pipeline
@@ -561,7 +567,8 @@ def test_k14_equals_plain_on_image_rays(cuda, any_hit, per_ray_t_max):
 
 def test_rt_entry_frame_matches_cpu(cuda):
     """The ray-traced entry frame with rt_light_shadows: K14 twice plus once
-    a light, no other kernel, within 1 LSB of the CPU frame on < 1%."""
+    a light, K15 once, no other kernel, within 1 LSB of the CPU frame on <
+    1%."""
     from arctic_tpu_torch.models import raytrace
 
     config, bufs, params, settings = _entry(cuda)
@@ -572,12 +579,78 @@ def test_rt_entry_frame_matches_cpu(cuda):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["bvh_trace"] == 2 + params.point_lights.count
-    assert sum(counts.values()) == counts["bvh_trace"]
+    assert counts["shade_lights"] == 1
+    assert sum(counts.values()) == counts["bvh_trace"] + 1
     _, cbufs, _, _ = _entry("cpu")
     want = raytrace.make_rt_renderer(config, raytrace.build_scene_bvh(cbufs), "cpu")(
         cbufs, params, settings)
     d = (img.cpu().to(torch.int32) - want.to(torch.int32)).abs()
     assert int(d.max()) <= 1 and float((d > 0).double().mean()) < 0.01
+
+
+@pytest.mark.parametrize("case", synthetic.K15_CASES)
+def test_k15_equals_plain_on_synthetic_inputs(cuda, case):
+    """K15 shade_lights on utils/synthetic.py's planes (metalness and
+    roughness at 0 and 1, normals facing away, lit 0 and 1, the eye's and a
+    light's own pixel; 0, 4 and 16 lights, cones read or not, a visibility
+    stack, interleaved tap planes read in place, NaN / inf / subnormal
+    values): one launch, bit-exact against the plain version on the card
+    (NaN positions included)."""
+    from arctic_tpu_torch.ops import pbr
+
+    args, kw = synthetic.k15_inputs(cuda, case)
+    kernels.reset_launch_counts()
+    got = pbr.shade_lights(*args, **kw)
+    torch.cuda.synchronize()
+    assert pbr.shade_lights.launches == 1
+    want = pbr.shade_lights_plain(*args, **kw)
+    assert got.shape == want.shape == (3, synthetic.K15_H, synthetic.K15_W)
+    assert got.is_contiguous() and _same(got, want)
+
+
+RT_POINT = ((0.0, 1.0, 0.0), (10.0, 0.0, 0.0))
+RT_SPOT = ((0.0, 6.0, -5.0), (120.0, 120.0, 120.0), ((0.0, -1.0, 0.0), 20.0, 35.0))
+
+
+@pytest.mark.parametrize("fields", [{}, {"spotlights": True},
+                                    {"spotlights": True, "rt_light_shadows": True}],
+                         ids=["point", "spot", "spot_light_shadows"])
+def test_rt_frame_with_k15_equals_plain_lighting(cuda, monkeypatch, fields):
+    """The Cornell ray-traced frame with a point light and a spotlight: K15
+    launched once a frame, and the frame bit-equal to the same frame lit by
+    the plain version on the card."""
+    from arctic_tpu_torch.models import raytrace
+    from arctic_tpu_torch.ops import pbr
+
+    config, bufs, params, settings = _entry(cuda)
+    config = dataclasses.replace(config, **fields)
+    params.point_lights = PointLights.from_list([RT_POINT, RT_SPOT], spots=True)
+    render = raytrace.make_rt_renderer(config, raytrace.build_scene_bvh(bufs), cuda)
+    kernels.reset_launch_counts()
+    img = render(bufs, params, settings)
+    torch.cuda.synchronize()
+    assert pbr.shade_lights.launches == 1
+    monkeypatch.setattr(raytrace, "shade_lights", pbr.shade_lights_plain)
+    want = render(bufs, params, settings)
+    assert pbr.shade_lights.launches == 1
+    assert img.float().mean() > 5.0 and torch.equal(img, want)
+
+
+def test_k15_wrapper_raises_on_planes_it_does_not_take(cuda):
+    """K15 reads each plane through its channel and pixel strides: planes
+    whose pixels are not evenly spaced, of another dtype or shape, or a
+    visibility stack of another light count raise; nothing falls back."""
+    from arctic_tpu_torch.ops import pbr
+
+    args, kw = synthetic.k15_inputs(cuda, "visibility")
+    wp = args[0]
+    padded = torch.zeros((3, wp.shape[1], wp.shape[2] + 5), device=cuda)[..., : wp.shape[2]]
+    padded.copy_(wp)
+    for at, bad, match in ((0, padded, "evenly spaced"), (1, args[1].double(), "float32"),
+                           (2, args[2][:, :-1], "shape"), (8, args[8][:3], "shape")):
+        with pytest.raises(ValueError, match=match):
+            pbr.shade_lights(*args[:at], bad, *args[at + 1:], **kw)
+    assert pbr.shade_lights.plain(padded, *args[1:], **kw).shape == padded.shape
 
 
 def test_grouped_tile_frame_launches_k9_per_group(cuda):

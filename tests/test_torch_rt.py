@@ -37,9 +37,11 @@ from arctic_tpu.models import raytrace as jraytrace
 from arctic_tpu.ops import rt as jrt
 from arctic_tpu_torch.app.cli import main
 from arctic_tpu_torch.core.config import RenderConfig
+from arctic_tpu_torch.core.scene import MAX_POINT_LIGHTS
+from arctic_tpu_torch.core.scene import PointLights as TPointLights
 from arctic_tpu_torch.io import build, images, procedural
 from arctic_tpu_torch.models import raytrace
-from arctic_tpu_torch.ops import rt
+from arctic_tpu_torch.ops import pbr, rt
 from arctic_tpu_torch.utils import convert, kernels, synthetic
 from arctic_tpu_torch.utils.errors import RenderError
 
@@ -409,6 +411,7 @@ FRAMES = {
     "point": (dict(), [POINT]),
     "light_shadows": (dict(rt_light_shadows=True), [POINT, BEHIND_BOX]),
     "spot": (dict(spotlights=True, rt_light_shadows=True), [POINT, SPOT]),
+    "spot_no_light_shadows": (dict(spotlights=True), [POINT, SPOT]),
     "per_slot": (dict(rt_light_shadows=True), [POINT, BEHIND_BOX]),
 }
 
@@ -431,7 +434,11 @@ def test_rt_frame_within_one_lsb_of_jax(frame):
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert d.max() <= 1 and (d > 0).mean() < 0.01, (d.max(), (d > 0).mean())
     n_shadow = len(lights) if fields.get("rt_light_shadows") else 0
-    assert set(calls) == {"bvh_trace"} and len(calls["bvh_trace"]) == 2 + n_shadow
+    assert set(calls) == {"bvh_trace", "shade_lights"}
+    assert len(calls["bvh_trace"]) == 2 + n_shadow and len(calls["shade_lights"]) == 1
+    (_, _, _, _, _, _, _, spotlights, visibility), _ = calls["shade_lights"][0]
+    assert spotlights == bool(fields.get("spotlights"))
+    assert (visibility is None) == (not n_shadow)
 
 
 RT_SPANS = ["rt_primary", "rt_surface", "rt_sun_shadow", "pbr_lights", "rt_sky", "post_process"]
@@ -515,7 +522,7 @@ def test_cli_raytrace_equals_in_process(tmp_path):
             "--raytrace", "--out", str(out)]
     with kernels.record_calls() as calls:
         assert main(argv) == 0
-    assert set(calls) == {"bvh_trace"}
+    assert set(calls) == {"bvh_trace", "shade_lights"}
     png = images.load_ldr(str(out))[..., :3]
     from arctic_tpu_torch.core.scene import default_scene_params, default_settings, make_camera
 
@@ -526,3 +533,59 @@ def test_cli_raytrace_equals_in_process(tmp_path):
                                      raytrace.build_scene_bvh(bufs), "cpu")(
         bufs, params, default_settings())
     np.testing.assert_array_equal(png, want.numpy())
+
+
+@pytest.mark.parametrize("case", ["spot", "visibility"])
+def test_shade_lights_on_cpu_tensors_launches_nothing(case):
+    """On CPU planes the K15 wrapper is its plain version (bit for bit, NaN
+    at the eye's own pixel included) and launches nothing."""
+    args, kw = synthetic.k15_inputs("cpu", case)
+    kernels.reset_launch_counts()
+    got = pbr.shade_lights(*args, **kw)
+    assert pbr.shade_lights.launches == 0
+    torch.testing.assert_close(got, pbr.shade_lights_plain(*args, **kw), rtol=0, atol=0,
+                               equal_nan=True)
+    assert got.shape == (3, synthetic.K15_H, synthetic.K15_W)
+
+
+def _bank(n, spots):
+    rng = np.random.default_rng(n)
+    rows = [(tuple(rng.uniform(-5, 5, 3)), tuple(rng.uniform(0, 50, 3)),
+             (tuple(rng.uniform(-1, 1, 3)), 15.0, 30.0) if spots and i % 2 else None)
+            for i in range(n)]
+    return TPointLights.from_list(rows, spots=spots)
+
+
+@pytest.mark.parametrize("case", ["0", "1", "4", "16", "count_over_16", "4_spots",
+                                  "4_spots_off", "4_no_cone_fields"])
+def test_pack_lights(case):
+    """K15's frame parameters from the host SceneParams: the eye, the sun's
+    incoming direction (minus its direction), its colour, ambient, the light
+    count capped at 16, and each light's rows; cone fields only under
+    ``spotlights`` with a bank that has them, zero elsewhere."""
+    params = convert.scene_params(_params([POINT]))
+    n = 20 if case == "count_over_16" else int(case.split("_")[0])
+    lights = _bank(min(n, MAX_POINT_LIGHTS), spots=case in ("4_spots", "4_spots_off"))
+    lights.count = n
+    params.point_lights = lights
+    spotlights = case in ("4_spots", "4_no_cone_fields")
+    got = pbr.pack_lights(params, spotlights)
+    assert len(got) == pbr.LIGHT_FLOATS == 188 and all(isinstance(x, float) for x in got)
+    assert got[pbr.LIGHT_EYE : pbr.LIGHT_EYE + 3] == EYE
+    sun_wi = got[pbr.LIGHT_SUN_WI : pbr.LIGHT_SUN_WI + 3]
+    assert sun_wi == (-params.sun.direction()).tolist()
+    assert sun_wi[1] > 0  # toward the sun, which shines down
+    assert got[pbr.LIGHT_SUN_COLOR : pbr.LIGHT_SUN_COLOR + 3] == params.sun.color.tolist()
+    assert got[pbr.LIGHT_AMBIENT] == float(params.ambient)
+    count = min(n, MAX_POINT_LIGHTS)
+    assert got[pbr.LIGHT_COUNT] == count
+    spot = case == "4_spots"
+    assert got[pbr.LIGHT_SPOT] == float(spot)
+    want = {pbr.LIGHT_POS: lights.position, pbr.LIGHT_COLOR: lights.color,
+            pbr.LIGHT_AXIS: lights.spot_dir if spot else torch.zeros(16, 3),
+            pbr.LIGHT_CONE: lights.spot_cos if spot else torch.zeros(16, 2)}
+    for off, rows in want.items():
+        width = rows.shape[1]
+        block = torch.tensor(got[off : off + width * MAX_POINT_LIGHTS]).view(-1, width)
+        assert torch.equal(block[:count], rows[:count].float()), off
+        assert not block[count:].any(), off
