@@ -335,13 +335,19 @@ def textured_materials(n_materials: int, texture_size: int, rng_seed=11):
     return mats
 
 
-def sponza_like_scene(columns=14, rng_seed=7, texture_size=None, n_materials=24):
+def sponza_like_scene(columns=14, rng_seed=7, texture_size=None, n_materials=24, atrium=None):
     """Benchmark scene with Sponza-scale structure (~0.26M triangles).
 
     A two-story colonnade hall: floor, walls, ceiling strips, two rows of
     fluted columns, hanging drapes (boxes), scattered clutter spheres. The
     point is matching the *load*: triangle count, many materials, large and
     small screen-space triangles, heavy occlusion.
+
+    ``atrium=(hx, hz)`` opens the ceiling to the sky over ``|x| <= hx, |z|
+    <= hz``, as Khronos Sponza's atrium is open: the rest of the ceiling
+    stays as four strips (the two ends over the whole width, the two sides
+    between them), facing down as the closed ceiling does. ``None`` keeps
+    the closed hall.
 
     ``texture_size`` (e.g. 1024) swaps in ``n_materials`` reference-scale
     materials (three texture_size^2 maps each, the Khronos Sponza's texture
@@ -370,7 +376,19 @@ def sponza_like_scene(columns=14, rng_seed=7, texture_size=None, n_materials=24)
     objects = []
     objects.append((transform((0, 0, 0), scale=(hall_l, 1, hall_w)), 0))
     # ceiling (flip via scale so faces point down)
-    objects.append((transform((0, hall_h, 0), scale=(hall_l, -1, hall_w)), 5))
+    if atrium is None:
+        objects.append((transform((0, hall_h, 0), scale=(hall_l, -1, hall_w)), 5))
+    else:
+        hx, hz = (float(v) for v in atrium)
+        if not (0 < hx < hall_l / 2 and 0 < hz < hall_w / 2):
+            raise ValueError(f"atrium {atrium}: half-extents must lie inside the "
+                             f"{hall_l / 2} x {hall_w / 2} half-hall")
+        end, side = hall_l / 2 - hx, hall_w / 2 - hz
+        for sign in (-1, 1):
+            objects.append((transform((sign * (hx + end / 2), hall_h, 0),
+                                      scale=(end, -1, hall_w)), 5))
+            objects.append((transform((0, hall_h, sign * (hz + side / 2)),
+                                      scale=(2 * hx, -1, side)), 5))
     # side walls
     for zs in (-1, 1):
         objects.append(

@@ -35,10 +35,12 @@ The brute-force frame (``force_bruteforce``) is the deferred frame over the
 raster oracle (ops/raster.rasterize_bruteforce) in both passes: no kernel.
 The opt-ins (``spotlights``, ``ibl_specular``) act in both frames.
 
-The frame runs eagerly on the device of the scene buffers. Per-frame
-constants (the camera and sun matrices, the light count, post-process
-settings) are evaluated on the host from the params' host tensors, as the
-reference's CPU side does, and enter device math as f32 values. Pair
+The frame runs eagerly on the device of the scene buffers, but for the
+cached frame's front end, which make_cached_renderer_stats replays on the
+card as one CUDA graph (CachedFront). Per-frame constants (the camera and
+sun matrices, the light count, post-process settings) are evaluated on the
+host from the params' host tensors, as the reference's CPU side does, and
+enter device math as f32 values (CachedFront's matrices as device f32). Pair
 buffers have fixed capacities (RenderConfig.pair_capacity, from its formula
 or from autotune_pair_caps) so overflow stays loud through check_stats.
 Intermediates are row-major (C, H_pad, W_pad) planes; the values are the
@@ -50,13 +52,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from arctic_tpu_torch.core.config import RenderConfig, check_tiles
 from arctic_tpu_torch.core.scene import (
-    MAX_POINT_LIGHTS,
     Geometry,
     SceneBuffers,
     SceneParams,
@@ -64,7 +66,7 @@ from arctic_tpu_torch.core.scene import (
     SunCache,
 )
 from arctic_tpu_torch.ops import binning, cull, raster, raster_tiles, shadow, sky, tonemap
-from arctic_tpu_torch.ops.pbr import dot_cf, fresnel_schlick, outgoing_radiance_cf
+from arctic_tpu_torch.ops.pbr import dot_cf, fresnel_schlick, shade_lights, shade_lights_plain
 from arctic_tpu_torch.ops.sampling import (
     quad_index,
     sample_atlas_multi,
@@ -75,6 +77,7 @@ from arctic_tpu_torch.ops.sampling import (
     tile_tap_resolve,
     tile_tap_resolve_grouped,
 )
+from arctic_tpu_torch.utils import kernels
 from arctic_tpu_torch.utils.errors import RenderError, check_finite, debug_checks_enabled
 from arctic_tpu_torch.utils.profiling import named_scope
 
@@ -114,8 +117,10 @@ def world_triangles(geom: Geometry) -> torch.Tensor:
 
 def corners_clip(wc, proj_view: torch.Tensor):
     """World corner components -> clip components ``out[c] = (x, y, z, w)``;
-    ``proj_view`` is a host 4x4."""
-    pv = proj_view.tolist()
+    ``proj_view`` is a host 4x4, whose entries enter as f32 scalars, or a
+    4x4 on the corners' device (CachedFront's input), whose entries enter
+    as 0-dim tensors: the same f32 products and sums, in the same order."""
+    pv = proj_view.tolist() if proj_view.device.type == "cpu" else proj_view
     out = []
     for c in range(3):
         x, y, z = wc[c]
@@ -295,20 +300,19 @@ def pcf_shadow(
 
 def shade_gbuffer(
     buffers: SceneBuffers, params: SceneParams, gbuf: torch.Tensor,
-    covered: torch.Tensor, shadow_map: torch.Tensor, config: RenderConfig,
-    sun_lut=None, sun_pyr=None, lut_y_range=None, y0: int = 0,
+    covered: torch.Tensor, shadow_f: torch.Tensor, config: RenderConfig, y0: int = 0,
 ):
     """forward.hlsl ps_main over the (64, H_pad, W_pad) G-buffer, channel
     first (lane map: [0:3 wp, 3:6 n, 6:9 t, 9:12 b, 12:14 uv, 14:17 light
     space xyz, 24:36 atlas regions, 36:40 mr const, 40:43 nm const, 43:47
-    combined-atlas region or tile block (base, ntx, h, w)]). ``sun_lut`` /
-    ``sun_pyr``: a SunCache's products; ``lut_y_range``: the in-frame
-    table's start_y band; ``y0``: the frame's pixel row of the planes' first
-    row (a slab of a sharded frame). The material tap takes the atlas's route: the
+    combined-atlas region or tile block (base, ntx, h, w)]). ``shadow_f``:
+    pcf_shadow's sun shadow factor of this G-buffer; ``y0``: the frame's
+    pixel row of the planes' first row (a slab of a sharded frame). The
+    material tap takes the atlas's route: the
     u16 tile atlas (K9, grouped with tex_group_caps), the merged quad rows
     (K6), the unmerged combined quads or the per-slot atlas (plain torch,
-    the sky sampled apart). Returns (HDR (3, H_pad, W_pad), penumbra rows,
-    grouped-tile fallback rows)."""
+    the sky sampled apart). Returns (HDR (3, H_pad, W_pad), grouped-tile
+    fallback rows)."""
     atlas, env = buffers.atlas, buffers.environment
     dev = gbuf.device
     hp, wp_ = covered.shape
@@ -326,11 +330,6 @@ def shade_gbuffer(
     dx = torch.where(covered, 1.0, dx)
     dy = torch.where(covered, 0.0, dy)
     dz = torch.where(covered, 0.0, dz)
-
-    with named_scope("pcf_shadow"):
-        shadow_f, pcf_rows = pcf_shadow(
-            gbuf, covered, shadow_map, config, sun_lut, sun_pyr, lut_y_range
-        )
 
     tex_fb_rows = torch.zeros((), dtype=torch.int32, device=dev)
     background = None
@@ -399,16 +398,11 @@ def shade_gbuffer(
     n = n / torch.sqrt(dot_cf(n, n))
     lit = (1.0 - shadow_f)[None]
 
-    eye = params.camera.eye.tolist()
-    wo = torch.stack([eye[i] - wp[i] for i in range(3)])
-    wo = wo / torch.sqrt(dot_cf(wo, wo))
-
-    with named_scope("pbr_lights"):
-        hdr = _light_and_composite(
-            buffers, params, config, covered, background, wp, n, wo, lit, base_color,
-            metalness, roughness,
-        )
-    return hdr, pcf_rows, tex_fb_rows
+    hdr = _light_and_composite(
+        buffers, params, config, covered, background, wp, n, lit, base_color, metalness,
+        roughness,
+    )
+    return hdr, tex_fb_rows
 
 
 def _combined_slots(atlas, planes):
@@ -483,38 +477,37 @@ def env_rows_bf16(buffers: SceneBuffers) -> torch.Tensor:
 
 
 def _light_and_composite(
-    buffers, params, config, covered, background, wp, n, wo, lit, base_color, metalness,
-    roughness,
+    buffers, params, config, covered, background, wp, n, lit, base_color, metalness, roughness,
 ):
     """Sun + point lights (spotlight cones with config.spotlights) + ambient
-    (+ IBL specular with config.ibl_specular), then the skybox composite."""
-    dev = wp.device
-    sun_dir = params.sun.direction().to(dev)
-    lo = lit * outgoing_radiance_cf(
-        n, wo, -sun_dir[:, None, None], params.sun.color.to(dev)[:, None, None],
-        base_color, metalness, roughness,
-    )
-    lights = params.point_lights
-    if config.static_point_lights is None:
-        n_lights = min(lights.count, MAX_POINT_LIGHTS)
-    else:
-        n_lights = min(config.static_point_lights, MAX_POINT_LIGHTS)
-    for i in range(n_lights):
-        lpos = lights.position[i].tolist()
-        ldir = torch.stack([lpos[k] - wp[k] for k in range(3)])
-        dist = torch.clamp(torch.sqrt(dot_cf(ldir, ldir)), min=1e-12)
-        wi = ldir / dist
-        radiance = lights.color[i].to(dev)[:, None, None] / (dist * dist)
-        if config.spotlights and lights.spot_dir is not None:
-            # -wi is the light-to-fragment direction (JAX pipeline.py:901-908).
-            outer, inv_range = lights.spot_cos[i].tolist()
-            cos_t = -dot_cf(wi, lights.spot_dir[i].to(dev)[:, None, None])
-            radiance = radiance * torch.clamp((cos_t - outer) * inv_range, 0.0, 1.0)
-        lo = lo + lit * outgoing_radiance_cf(
-            n, wo, wi, radiance, base_color, metalness, roughness
-        )
-    color = lo + float(params.ambient) * base_color
+    under the ``pbr_lights`` range, then IBL specular (config.ibl_specular)
+    and the skybox composite under ``sky_composite``."""
+    with named_scope("pbr_lights"):
+        color = _lights(params, config, wp, n, lit, base_color, metalness, roughness)
+    with named_scope("sky_composite"):
+        return _sky_composite(buffers, params, config, covered, background, color, wp, n,
+                              base_color, metalness)
+
+
+def _lights(params, config, wp, n, lit, base_color, metalness, roughness):
+    """The sun term scaled by ``lit``, the first config.static_point_lights
+    point lights (the bank's count where None; at most MAX_POINT_LIGHTS),
+    each scaled by ``lit`` and by its cone under config.spotlights, and the
+    ambient term: K15, whose plain version the brute-force frame takes (it
+    launches no kernel)."""
+    shade = shade_lights_plain if config.force_bruteforce else shade_lights
+    return shade(wp, n, base_color, metalness, roughness, lit, params, config.spotlights,
+                 count=config.static_point_lights)
+
+
+def _sky_composite(buffers, params, config, covered, background, color, wp, n, base_color,
+                   metalness):
+    """IBL specular (config.ibl_specular) added to the lit colour, then the
+    skybox where no surface covers the pixel."""
     if config.ibl_specular:
+        eye = params.camera.eye.tolist()
+        wo = torch.stack([eye[i] - wp[i] for i in range(3)])
+        wo = wo / torch.sqrt(dot_cf(wo, wo))
         # F(n.wo, F0) * env(reflect(-wo, n)) (JAX pipeline.py:920-932).
         ndotwo = dot_cf(n, wo)
         refl = 2.0 * ndotwo * n - wo
@@ -652,46 +645,44 @@ def shade(
                for i in range(4)]
         lit = (1.0 - shadow.pcf_shadow(shadow_map, lsp))[None]
 
-    eye = params.camera.eye.tolist()
-    wo = torch.stack([eye[i] - wp[i] for i in range(3)])
-    wo = wo / torch.sqrt(dot_cf(wo, wo))
-
     dx, dy, dz = sky.camera_ray_dirs_cf(params.camera, px, py, config.width, config.height)
     background = torch.stack(sky.sample_environment_cf(
         env_rows_bf16(buffers), env.block_grid, env.region, dx, dy, dz
     ))
-    with named_scope("pbr_lights"):
-        return _light_and_composite(
-            buffers, params, config, covered, background, wp, n, wo, lit, base_color,
-            metalness, roughness,
-        )
+    return _light_and_composite(
+        buffers, params, config, covered, background, wp, n, lit, base_color, metalness,
+        roughness,
+    )
 
 
-def render_frame_stats(
-    buffers: SceneBuffers, params: SceneParams, settings: Settings, config: RenderConfig,
-    sun_cache: SunCache | None = None,
-):
-    """Full frame -> ((H, W, 3) uint8, raster health stats).
+class FrontEnd(NamedTuple):
+    """front_end's products: the shadow map (a sun cache's map), its pass's
+    pairs and capacity, the world corners, the camera setup, the visibility
+    buffer, the camera pass's pairs and capacity and, on the fused frame,
+    the G-buffer and pcf_shadow's shadow factor and penumbra rows."""
 
-    stats: cam/shadow pairs, penumbra rows and the grouped tile route's
-    fallback rows (0-dim device tensors) and their capacities; more than
-    the capacity means a buffer overflowed and the frame is wrong —
-    check_stats() raises then (``debug_overflow`` also logs a warning from
-    here). pcf_row_cap / tex_fb_cap is 1 when classification / grouping is
-    off (the count is then 0); the brute-force frame reports 0 pairs of a
-    cap of 1.
+    shadow_map: torch.Tensor
+    shadow_pairs: torch.Tensor
+    shadow_cap: int
+    wc: tuple
+    setup: raster.TriSetup
+    ibuf: torch.Tensor
+    cam_pairs: torch.Tensor
+    cam_cap: int
+    gbuf: torch.Tensor | None = None
+    shadow_f: torch.Tensor | None = None
+    pcf_rows: torch.Tensor | None = None
 
-    ``sun_cache`` (a build_sun_cache result) replaces the shadow pass, the
-    window table and the pyramid while the sun and the geometry are
-    unchanged; the frame's pixels are the same. Tiles the JAX package
-    refuses on this frame's path raise RenderError (core/config.check_tiles)."""
-    use_full_f32()
-    check_tiles(config, shadow=sun_cache is None)
-    check_frame_inputs(params, settings)
+
+def front_end(buffers: SceneBuffers, cam_pv: torch.Tensor, sun_pv: torch.Tensor,
+              config: RenderConfig, sun_cache: SunCache | None = None) -> FrontEnd:
+    """render_frame_stats up to its shading: the shadow pass (none with a
+    ``sun_cache``), the camera pass and, on the fused frame, the PCF. It
+    takes no per-frame value but the camera's and the sun's 4x4 ``cam_pv``
+    / ``sun_pv`` (on the host, or on the scene's device: corners_clip), so
+    that CachedFront can capture it."""
     geom = buffers.geometry
     dev = buffers.device
-    sun_pv = params.sun.proj_view()
-    cam_pv = params.camera.proj_view()
     is_fused = fused(config)
     sun_lut = sun_pyr = lut_y_range = None
 
@@ -715,34 +706,70 @@ def render_frame_stats(
 
     with named_scope("forward_visibility"):
         setup = camera_setup(wc, tri_valid, cam_pv, config)
-        if is_fused:
-            shade_rows = build_shade_rows(setup, geom, wc, tuple(c[:3] for c in sun_clip))
-            ibuf, gbuf, cam_pairs = raster_tiles.raster_gbuffer(
-                setup, shade_rows, config.height, config.width, config
-            )
-            cam_cap = config.pair_capacity(setup.capacity, "cam")
-            check_gbuffer(gbuf, ibuf)
-        else:
+        if not is_fused:
             _, ibuf, cam_pairs, cam_cap = rasterize(setup, config.height, config.width, config)
+            return FrontEnd(shadow_map, sh_pairs, sh_cap, wc, setup, ibuf, cam_pairs, cam_cap)
+        shade_rows = build_shade_rows(setup, geom, wc, tuple(c[:3] for c in sun_clip))
+        ibuf, gbuf, cam_pairs = raster_tiles.raster_gbuffer(
+            setup, shade_rows, config.height, config.width, config
+        )
+        cam_cap = config.pair_capacity(setup.capacity, "cam")
+        check_gbuffer(gbuf, ibuf)
+
+    with named_scope("pcf_shadow"):
+        shadow_f, pcf_rows = pcf_shadow(gbuf, ibuf >= 0, shadow_map, config, sun_lut, sun_pyr,
+                                        lut_y_range)
+    return FrontEnd(shadow_map, sh_pairs, sh_cap, wc, setup, ibuf, cam_pairs, cam_cap, gbuf,
+                    shadow_f, pcf_rows)
+
+
+def render_frame_stats(
+    buffers: SceneBuffers, params: SceneParams, settings: Settings, config: RenderConfig,
+    sun_cache: SunCache | None = None,
+):
+    """Full frame -> ((H, W, 3) uint8, raster health stats).
+
+    stats: cam/shadow pairs, penumbra rows and the grouped tile route's
+    fallback rows (0-dim device tensors) and their capacities; more than
+    the capacity means a buffer overflowed and the frame is wrong —
+    check_stats() raises then (``debug_overflow`` also logs a warning from
+    here). pcf_row_cap / tex_fb_cap is 1 when classification / grouping is
+    off (the count is then 0); the brute-force frame reports 0 pairs of a
+    cap of 1.
+
+    ``sun_cache`` (a build_sun_cache result) replaces the shadow pass, the
+    window table and the pyramid while the sun and the geometry are
+    unchanged; the frame's pixels are the same. Tiles the JAX package
+    refuses on this frame's path raise RenderError (core/config.check_tiles)."""
+    return _frame(buffers, params, settings, config, sun_cache, front_end)
+
+
+def _frame(buffers, params, settings, config, sun_cache, front):
+    """render_frame_stats with ``front`` (front_end, or a CachedFront) for
+    its front end."""
+    use_full_f32()
+    check_tiles(config, shadow=sun_cache is None)
+    check_frame_inputs(params, settings)
+    f = front(buffers, params.camera.proj_view(), params.sun.proj_view(), config, sun_cache)
+
     with named_scope("forward_shade_skybox"):
-        if is_fused:
-            hdr, pcf_rows, tex_fb_rows = shade_gbuffer(
-                buffers, params, gbuf, ibuf >= 0, shadow_map, config, sun_lut, sun_pyr,
-                lut_y_range,
-            )
+        if fused(config):
+            hdr, tex_fb_rows = shade_gbuffer(buffers, params, f.gbuf, f.ibuf >= 0, f.shadow_f,
+                                             config)
+            pcf_rows = f.pcf_rows
         else:
-            hdr = shade(buffers, params, setup, ibuf, wc, shadow_map, config)
-            pcf_rows = tex_fb_rows = torch.zeros((), dtype=torch.int32, device=dev)
+            hdr = shade(buffers, params, f.setup, f.ibuf, f.wc, f.shadow_map, config)
+            pcf_rows = tex_fb_rows = torch.zeros((), dtype=torch.int32, device=buffers.device)
         check_finite("forward_shade_skybox", hdr=hdr)
 
     with named_scope("post_process"):
         img = post_process(hdr, settings, config)[: config.height, : config.width]
 
     stats = {
-        "cam_pairs": cam_pairs,
-        "cam_pair_cap": cam_cap,
-        "shadow_pairs": sh_pairs,
-        "shadow_pair_cap": sh_cap,
+        "cam_pairs": f.cam_pairs,
+        "cam_pair_cap": f.cam_cap,
+        "shadow_pairs": f.shadow_pairs,
+        "shadow_pair_cap": f.shadow_cap,
         "pcf_rows": pcf_rows,
         "pcf_row_cap": pcf_row_capacity(config),
         "tex_fb_rows": tex_fb_rows,
@@ -1057,15 +1084,74 @@ def make_sun_cache_builder(config: RenderConfig, device: torch.device | str = "c
     return functools.update_wrapper(build, build_sun_cache)
 
 
+class CachedFront:
+    """front_end of the cached fused frame as one CUDA graph: about 1,900
+    of the cached 1080p frame's 2,100 launches, and most of the host time
+    that paces it.
+
+    On the card, for the fused frame with a sun cache and the debug checks
+    off, the first call with a scene, a cache and a config runs front_end
+    eagerly (what loads once loads then), the second captures it and
+    replays the capture, every later call replays it. Each of these calls
+    first copies the camera's and the sun's 4x4 into the graph's input: one
+    non-blocking upload from pinned memory. A replay rewrites the graph's
+    outputs in place; the frame consumes them on the same stream before
+    the next call queues its replay, and the pair and penumbra-row counts
+    it hands out as stats are copies. Another scene, cache or config starts
+    over; every other call runs front_end as it is.
+
+    A replay calls no kernel wrapper. The wrappers' ``.launches`` count the
+    capture's launches once, for the replay that follows the capture;
+    ``replays`` counts the replays after that, each of which launches the
+    capture's ``captured`` {kernel name: launches}."""
+
+    def __init__(self):
+        self.replays = 0
+        self.captured: dict[str, int] = {}
+        self._for = self._pv = self._graph = self._out = None
+
+    def __call__(self, buffers, cam_pv, sun_pv, config, sun_cache=None) -> FrontEnd:
+        if (buffers.device.type != "cuda" or sun_cache is None or not fused(config)
+                or debug_checks_enabled()):
+            return front_end(buffers, cam_pv, sun_pv, config, sun_cache)
+        key = (buffers, sun_cache, config)
+        fresh = self._for is None or any(a is not b for a, b in zip(self._for, key))
+        if fresh:
+            self._for, self._graph, self._out = key, None, None
+            self._pv = torch.empty((2, 4, 4), dtype=torch.float32, device=buffers.device)
+        self._pv.copy_(torch.stack([cam_pv, sun_pv]).to(torch.float32).pin_memory(),
+                       non_blocking=True)
+        if fresh:
+            return front_end(buffers, self._pv[0], self._pv[1], config, sun_cache)
+        if self._graph is None:
+            before = kernels.launch_counts()
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph):
+                self._out = front_end(buffers, self._pv[0], self._pv[1], config, sun_cache)
+            self.captured = {k: n - before[k] for k, n in kernels.launch_counts().items()
+                             if n > before[k]}
+        else:
+            self.replays += 1
+        self._graph.replay()
+        out = self._out
+        return out._replace(shadow_pairs=out.shadow_pairs.clone(),
+                            cam_pairs=out.cam_pairs.clone(), pcf_rows=out.pcf_rows.clone())
+
+
 def make_cached_renderer_stats(config: RenderConfig, device: torch.device | str = "cuda"):
     """Frame function ``f(buffers, params, settings, sun_cache) -> (img,
     stats)``: the camera-motion path of a session with a stationary sun,
-    with no shadow raster, table build or pyramid in the frame."""
+    with no shadow raster, table build or pyramid in the frame. On the card
+    the fused frame's front end runs as a CUDA graph (CachedFront, the
+    function's ``.front``)."""
     use_full_f32()
     device = torch.device(device)
+    front = CachedFront()
 
     def render(buffers, params, settings, sun_cache):
         _check_device(buffers, device)
-        return render_frame_stats(buffers, params, settings, config, sun_cache)
+        return _frame(buffers, params, settings, config, sun_cache, front)
 
-    return functools.update_wrapper(render, render_frame_stats)
+    render = functools.update_wrapper(render, render_frame_stats)
+    render.front = front
+    return render

@@ -2,10 +2,10 @@
 of arctic_tpu/ops/pbr.py (shaders/forward.hlsl:126-193). Vectors are
 (3, ...) with the channel axis leading, scalars (1, ...).
 
-``shade_lights`` (K15, csrc/shade_lights.cu) lights the ray-traced frame:
-the sun, the point lights and the ambient term in one launch on the card;
-``shade_lights_plain`` is the same chain in plain torch, each operation
-rounded as the kernel rounds it.
+``shade_lights`` (K15, csrc/shade_lights.cu) lights the ray-traced and
+the raster frames: the sun, the point lights and the ambient term in one
+launch on the card; ``shade_lights_plain`` is the same chain in plain
+torch, each operation rounded as the kernel rounds it.
 """
 
 from __future__ import annotations
@@ -72,11 +72,11 @@ def outgoing_radiance_cf(n, wo, wi, ingoing_radiance, base_color, metalness, rou
     return (k_d * base_color / PI + specular) * ingoing_radiance * n_dot_wi
 
 
-# K15 shade_lights: the ray-traced frame's sun, point lights and ambient
-# term in one launch (csrc/shade_lights.cu).
+# K15 shade_lights: a frame's sun, point lights and ambient term in one
+# launch (csrc/shade_lights.cu).
 # The frame parameters K15 takes by value, as floats in this order (LIGHT_*
 # are offsets): eye, the sun's incoming direction wi = -direction, the sun's
-# colour, ambient, the light count (at most MAX_POINT_LIGHTS), the spot
+# colour, ambient, the light count (0 to MAX_POINT_LIGHTS), the spot
 # flag, then per light (MAX_POINT_LIGHTS rows each, zero beyond the count)
 # its position, colour, spot axis and cone (outer_cos, inv_range); the axes
 # and cones are zero unless the spot flag is set.
@@ -101,12 +101,20 @@ def point_light_dir(wp: torch.Tensor, position: torch.Tensor):
     return ldir / dist, dist
 
 
-def pack_lights(params, spotlights: bool) -> list[float]:
+def light_count(params, count=None) -> int:
+    """The point lights ``shade_lights`` shades: ``count`` (the bank's own
+    count where None) clamped to 0..MAX_POINT_LIGHTS. Rows past the bank's
+    count are its zero rows: they add nothing."""
+    n = params.point_lights.count if count is None else count
+    return max(0, min(int(n), MAX_POINT_LIGHTS))
+
+
+def pack_lights(params, spotlights: bool, count=None) -> list[float]:
     """The frame parameters of ``shade_lights`` (SceneParams on the host)
     as K15 takes them: LIGHT_FLOATS floats, read with .tolist() (no device
-    copy, no sync for host tensors)."""
+    copy, no sync for host tensors); ``count`` as light_count takes it."""
     lights = params.point_lights
-    count = min(lights.count, MAX_POINT_LIGHTS)
+    count = light_count(params, count)
     spot = spotlights and lights.spot_dir is not None
     out = [0.0] * LIGHT_FLOATS
     out[LIGHT_EYE : LIGHT_EYE + 3] = params.camera.eye.tolist()
@@ -124,12 +132,14 @@ def pack_lights(params, spotlights: bool) -> list[float]:
 
 
 def shade_lights_plain(wp, n, base_color, metalness, roughness, lit, params, spotlights=False,
-                       visibility=None):
-    """Plain torch K15: the ray-traced frame's lighting (JAX raytrace.py's
-    shading) over channel-first planes: the sun term scaled by ``lit``
-    (1, H, W), each point light's term (its cone under ``spotlights``)
-    scaled by ``lit`` and, where ``visibility`` (L, H, W) is given, by the
-    light's row, and the ambient term -> (3, H, W) colour."""
+                       visibility=None, count=None):
+    """Plain torch K15: a frame's lighting (JAX raytrace.py's shading and
+    the lights of pipeline.py's fused frame) over channel-first planes: the
+    sun term scaled by ``lit`` (1, H, W), each of the first ``count`` point
+    lights' terms (light_count: the bank's count where None; its cone under
+    ``spotlights``) scaled by ``lit`` and, where ``visibility`` (L, H, W)
+    is given, by the light's row, and the ambient term -> (3, H, W)
+    colour."""
     dev = wp.device
     wi_sun = -params.sun.direction().to(dev)
     eye = params.camera.eye.tolist()
@@ -140,7 +150,7 @@ def shade_lights_plain(wp, n, base_color, metalness, roughness, lit, params, spo
         base_color, metalness, roughness,
     )
     lights = params.point_lights
-    for i in range(min(lights.count, MAX_POINT_LIGHTS)):
+    for i in range(light_count(params, count)):
         wi, dist = point_light_dir(wp, lights.position[i])
         radiance = lights.color[i].to(dev)[:, None, None] / (dist * dist)
         if spotlights and lights.spot_dir is not None:
@@ -170,20 +180,23 @@ def _pixel_strides(t: torch.Tensor, name: str, channels: int, hw: tuple) -> tupl
 
 @kernels.kernel(
     "shade_lights", "arctic_tpu_torch/csrc/shade_lights.cu",
-    "none (arctic_tpu/models/raytrace.py's shading chain, which XLA fuses under jax.jit)",
-    shade_lights_plain,
+    "none (the lighting chains of arctic_tpu/models/raytrace.py and pipeline.py, which XLA "
+    "fuses under jax.jit)",
+    shade_lights_plain, counters=("lights",),
 )
 def shade_lights(wp, n, base_color, metalness, roughness, lit, params, spotlights=False,
-                 visibility=None):
+                 visibility=None, count=None):
     """K15: ``shade_lights_plain`` in one launch for CUDA planes (the plain
     version for CPU ones). Planes are f32, channel first, with evenly
     spaced pixels (views such as a tap's ``movedim`` are read in place);
-    ``params`` stays on the host and goes to the kernel by value."""
+    ``params`` stays on the host and goes to the kernel by value. Adds the
+    lights it shades to ``shade_lights.lights`` on either device."""
+    shade_lights.lights += light_count(params, count)
     if not wp.is_cuda:
         return shade_lights_plain(wp, n, base_color, metalness, roughness, lit, params,
-                                  spotlights, visibility)
+                                  spotlights, visibility, count)
     hw = tuple(wp.shape[1:])
-    count = min(params.point_lights.count, MAX_POINT_LIGHTS)
+    count = light_count(params, count)
     planes = [(wp, "wp", 3), (n, "n", 3), (base_color, "base_color", 3),
               (metalness, "metalness", 1), (roughness, "roughness", 1), (lit, "lit", 1)]
     strides = [s for t, name, c in planes for s in _pixel_strides(t, name, c, hw)]
@@ -191,6 +204,6 @@ def shade_lights(wp, n, base_color, metalness, roughness, lit, params, spotlight
     out = torch.empty((3, *hw), dtype=torch.float32, device=wp.device)
     kernels.launch("arctic_shade_lights", wp, n, base_color, metalness, roughness, lit,
                    visibility, (ctypes.c_longlong * len(strides))(*strides), hw[0], hw[1],
-                   (ctypes.c_float * LIGHT_FLOATS)(*pack_lights(params, spotlights)), out)
+                   (ctypes.c_float * LIGHT_FLOATS)(*pack_lights(params, spotlights, count)), out)
     shade_lights.launches += 1
     return out

@@ -11,6 +11,7 @@ so the planes agree bit for bit (no operation here fuses a multiply-add).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -26,6 +27,13 @@ DEAD_C = -1.0e30
 # rotation bringing the pattern to (in, out, out) or (in, in, out).
 _CLIP_ROT = (0, 0, 1, 0, 2, 2, 1, 0)
 _CLIP_NOUT = (0, 1, 1, 2, 1, 2, 2, 1)
+
+
+@functools.cache
+def _clip_tables(device: torch.device) -> torch.Tensor:
+    """(2, 8) int64 [_CLIP_ROT; _CLIP_NOUT] on ``device``, uploaded once: a
+    table made from host lists in every frame would be a blocking copy."""
+    return torch.tensor((_CLIP_ROT, _CLIP_NOUT), dtype=torch.int64, device=device)
 
 
 @dataclass
@@ -72,10 +80,9 @@ def near_clip_corners(corners, tri_valid: torch.Tensor) -> ClippedTris:
         + 2 * inside[1].to(torch.int64)
         + 4 * inside[2].to(torch.int64)
     )
-    rot = torch.tensor(_CLIP_ROT, dtype=torch.int64, device=dev)[code]
-    nout = torch.where(
-        tri_valid, torch.tensor(_CLIP_NOUT, dtype=torch.int64, device=dev)[code], 0
-    )
+    rot_table, nout_table = _clip_tables(dev)
+    rot = rot_table[code]
+    nout = torch.where(tri_valid, nout_table[code], 0)
 
     # Rotate vertices so inside ones come first (cyclic: winding preserved).
     def pick(cidx):

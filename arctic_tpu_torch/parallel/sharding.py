@@ -164,9 +164,12 @@ def camera_slab(buffers: SceneBuffers, params: SceneParams, settings: Settings,
             hdr = pipeline.shade(buffers, params, setup, ibuf, front.wc, shadow_map, config, y0)
             pcf_rows = tex_fb_rows = zero
         else:
-            hdr, pcf_rows, tex_fb_rows = pipeline.shade_gbuffer(
-                buffers, params, gbuf, ibuf >= 0, shadow_map, config,
-                lut_y_range=front.lut_y_range, y0=y0,
+            with named_scope("pcf_shadow"):
+                shadow_f, pcf_rows = pipeline.pcf_shadow(
+                    gbuf, ibuf >= 0, shadow_map, config, lut_y_range=front.lut_y_range
+                )
+            hdr, tex_fb_rows = pipeline.shade_gbuffer(
+                buffers, params, gbuf, ibuf >= 0, shadow_f, config, y0=y0
             )
         check_finite("forward_shade_skybox", hdr=hdr)
     with named_scope("post_process"):

@@ -192,11 +192,12 @@ def _raise_on_error(lib, what: str, code: int) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
 
 
-def kernel(name: str, source: str, replaces: str, plain):
+def kernel(name: str, source: str, replaces: str, plain, counters: tuple = ()):
     """Register a kernel wrapper: its metadata (every kernel is CUDA C++),
-    its plain torch version (``.plain``, same signature) and a launch
-    counter (``.launches``, which the wrapper bumps where it launches the
-    kernel)."""
+    its plain torch version (``.plain``, same signature), a launch counter
+    (``.launches``, which the wrapper bumps where it launches the kernel)
+    and the wrapper's own ``counters`` (plain integers it bumps itself);
+    reset_launch_counts zeroes them all."""
 
     def deco(fn):
         @functools.wraps(fn)
@@ -210,7 +211,9 @@ def kernel(name: str, source: str, replaces: str, plain):
         wrapper.source = source
         wrapper.replaces = replaces
         wrapper.plain = plain
-        wrapper.launches = 0
+        wrapper.counters = ("launches", *counters)
+        for counter in wrapper.counters:
+            setattr(wrapper, counter, 0)
         KERNELS.append(wrapper)
         return wrapper
 
@@ -235,7 +238,8 @@ def record_calls():
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
-        fn.launches = 0
+        for counter in fn.counters:
+            setattr(fn, counter, 0)
 
 
 def launch_counts() -> dict:

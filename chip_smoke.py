@@ -60,7 +60,10 @@ which raises on failure (exit code != 0):
    gives pcf_rows; the cap becomes 32 * ceil(1.4 * pcf_rows / 32), frame 0
    at that cap must be bit-identical, then the 5-frame fly-through;
 4c. the cached sun at real size: build_sun_cache, then the 5 frames with
-   the cache, each within 1 LSB of the uncached frame of 4b;
+   the cache, each within 1 LSB of the uncached frame of 4b (the front end
+   eager on the first frame, captured as a CUDA graph on the second and
+   replayed after: a kernel's launches are its wrapper's count plus the
+   graph's replays times its launches at the capture, logged apart);
 4d. the textured path at real size: sponza_like_scene(texture_size=1024,
    n_materials=24) on the tile atlas, built directly (bench.py skips the
    round trip for it too), its own tuned pair caps, the 5-frame
@@ -87,7 +90,8 @@ which raises on failure (exit code != 0):
 3f. the entry frame with force_bruteforce: no kernel launches, within 1
    LSB of the port's CPU brute-force frame and of the default entry frame
    on < 1% of the values, >= 40 dB against the oracle;
-3g. the entry frame with fused_shade=False: K1 twice and no other kernel,
+3g. the entry frame with fused_shade=False: K1 twice, K15 once and no
+   other kernel,
    its ibuf equal to the brute-force raster's on the same setup, its frame
    within 1 LSB of 3f's;
 3h. Cornell with the point light and a spotlight (spotlights=True), fused
@@ -101,18 +105,18 @@ which raises on failure (exit code != 0):
    GLB of 4g, each PNG bit-equal to the in-process frame of its config;
 4h. the deferred frame at real size: the default scene and config with
    fused_shade=False, pair caps tuned for it (the shadow pass uncull'd),
-   the fly-through (K1 twice a frame, nothing else), each frame within 1
+   the fly-through (K1 twice and K15 once a frame, nothing else), each frame within 1
    LSB of the default path's frame at its viewpoint on >= 99% of the
    pixels, frame 19 gated against bench_golden.png by the default path's
    rule;
 4i. the opt-ins at real size on the default path (ibl_specular,
    spotlights, the bench rig plus a spotlight above the nave): the
-   fly-through (K1, K3, K4, K6), frame 0 within 1 LSB of the deferred frame
+   fly-through (K1, K3, K4, K6, K15), frame 0 within 1 LSB of the deferred frame
    with the same options on >= 99% of the pixels;
 3i. (after 4i, as are 3j-3l and 4j-4l, so that every earlier path keeps
    its allocator history) the per-slot route: Cornell with each normal
    map half its diffuse map's size (procedural.per_slot_materials), on
-   the per-slot atlas: K1, K3 and K4 and no other kernel (no K6, no K9),
+   the per-slot atlas: K1, K3, K4 and K15 and no other kernel (no K6, no K9),
    within 1 LSB of the port's CPU frame on < 1% of the values, >= 40 dB
    against the f64 oracle of those materials;
 3j. the unmerged combined route: Cornell with atlas_dtype=torch.float32
@@ -170,8 +174,8 @@ which raises on failure (exit code != 0):
    camera move, a tonemap change, a light edit, a sun edit and an object
    edit, then /state; each PNG, decoded by io/images, bit-equal to the
    in-process frame of the viewer's state; K1 once a frame where the sun
-   and geometry stay (the cached sun), twice where the cache is rebuilt
-   (the first frame, the sun and the object edit);
+   and geometry stay (the cached sun; counted as in 4c), twice where the
+   cache is rebuilt (the first frame, the sun and the object edit);
 6f. enable_debug_checks: the entry frame and real-size frame 0 bit-equal
    to the unchecked ones of phases 3 and 4; a NaN light colour raises
    FloatingPointError at the frame's inputs, a NaN corner normal of a
@@ -196,6 +200,14 @@ which raises on failure (exit code != 0):
    4's frame 0 (K1's shadow slabs from row rank * sh_rows * 32);
 7d. the CLI with --config {"shadow_tile": 16} on 4g's GLB: its PNG
    bit-equal to 4g's in-process frame;
+7e. the benchmark's lights16 configuration (render_bench/configs/
+   sponza_1080p.json: the hall with its open atrium, 16 point lights, the
+   runs PCF against the cached 4000^2 map, 1920 x 1080) through
+   make_cached_renderer_stats over the first 10 viewpoints of its path,
+   the front end eager, captured and replayed as in 4c: every frame and
+   its stats equal to render_frame_stats' eager cached frame, K1, K3, K4,
+   K6 and K15 each launched (counted as in 4c); K15's call bit-exact
+   against its plain version, its CUDA-event ms, device ms and byte floor;
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded; K14 on every
    ray of the real-size calls, frame 0's and the light-shadow frame's; K15
@@ -290,14 +302,15 @@ GOLDEN_NEAR_SHARE = 0.99
 ENTRY_ROWS = 384
 # Penumbra row cap headroom over frame 0's count at real size.
 CAP_MARGIN = 1.4
-DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve")
+# Every raster frame but the brute-force one lights its pixels with K15.
+DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve", "shade_lights")
 QUANT_PATH = DEFAULT_PATH + ("window_lut_q", "pcf_eval")
-TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve")
-FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve")
+TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve", "shade_lights")
+FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve", "shade_lights")
 # Kernels with no caller in any frame, as in the JAX package.
 NO_FRAME = ("pack_shade_rows_tm", "pcf_resolve")
-# The deferred frame's only kernel; the brute-force frame launches none.
-DEFERRED_PATH = ("raster_tiles",)
+# The deferred frame's kernels; the brute-force frame launches none.
+DEFERRED_PATH = ("raster_tiles", "shade_lights")
 # The opt-in rig of the entry phases: the parity red point light and a
 # spotlight over the Cornell boxes aimed down (tests/test_spotlights.py:29-30);
 # the spotlight added to the real-size rig.
@@ -309,7 +322,7 @@ REAL_SPOT = ((0.0, 8.0, 0.0), (200.0, 200.0, 200.0), ((0.0, -1.0, 0.0), 20.0, 35
 DEFERRED_NEAR_SHARE = 0.99
 # The per-slot and unmerged routes' kernels (no K6, no K9); the ray-traced
 # frame's kernels (K14 traces, K15 lights).
-PER_SLOT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp")
+PER_SLOT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "shade_lights")
 RT_PATH = ("bvh_trace", "shade_lights")
 # 3k: tests/test_tex_groups.py's six materials at 128 x 128 in groups of
 # at most 220 tile rows, laid out as three explicit groups.
@@ -344,6 +357,9 @@ REAL_SLABS = 4
 MULTI_CARD_RANKS = 4
 # 6e: the viewer's pair-cap headroom over its first viewpoint (viewer.main's).
 VIEWER_MARGIN = 4.0
+# 7e: viewpoints of the lights16 cell's path, and the path's seed.
+LIGHTS16_FRAMES = 10
+LIGHTS16_SEED = 3_000_000_019
 # 7a: the entry scene at tests/test_torch_tiles.py's tiles (label: path,
 # tile fields); each frame bit-equal to the path's 64 x 64 entry frame.
 TILE_CASES = {
@@ -665,7 +681,7 @@ def run_entry_bruteforce(oracle, default_img):
 
 def run_entry_deferred(bf_img):
     """3g: the entry frame with fused_shade=False: K1 twice (shadow and
-    camera pass) and no other kernel; its visibility buffer equal to the
+    camera pass), K15 once (its lights) and no other kernel; its visibility buffer equal to the
     brute-force one on the same setup (tiled == brute force), its frame
     within 1 LSB of the brute-force frame."""
     import dataclasses
@@ -1060,6 +1076,8 @@ def fly_through(render, bufs, frames, path, label, *extra, absent=()):
 
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
+    front = getattr(render, "front", None)
+    replays = front.replays if front is not None else 0
     kernels.reset_launch_counts()
     times, all_stats, imgs = [], [], []
     for params, settings in frames:
@@ -1069,7 +1087,7 @@ def fly_through(render, bufs, frames, path, label, *extra, absent=()):
         times.append((time.perf_counter() - t) * 1e3)
         all_stats.append(stats)
         imgs.append(img)
-    counts = kernels.launch_counts()
+    counts = with_replays(kernels.launch_counts(), front, replays, label)
     peak = torch.cuda.max_memory_allocated()
     log(f"{label} launches over {len(frames)} frames: {counts}")
     check_launches(counts, path, label, absent)
@@ -1077,6 +1095,19 @@ def fly_through(render, bufs, frames, path, label, *extra, absent=()):
         if st is not None:  # the ray-traced frame has no capacities to check
             pipeline.check_stats(st)
     return times, all_stats, [im.cpu().numpy() for im in imgs], counts, (peak, resident)
+
+
+def with_replays(counts, front, replays_before: int, label: str) -> dict:
+    """Launch counts of a run: the wrappers' ``counts`` plus, where the
+    frames went through a CachedFront (``front``), its graph's replays
+    since ``replays_before`` times the launches its capture recorded (a
+    replay calls no wrapper; the capture's own replay is counted by the
+    wrappers), both logged."""
+    if front is None or front.replays == replays_before:
+        return counts
+    n = front.replays - replays_before
+    log(f"{label}: wrapper launches {counts}; {n} graph replays x captured {front.captured}")
+    return {k: c + n * front.captured.get(k, 0) for k, c in counts.items()}
 
 
 def _mem(mem) -> str:
@@ -1188,7 +1219,7 @@ def run_full_stack(device, bufs, config, default_imgs, profile: bool = False):
 def run_real_deferred(device, bufs, default_imgs, profile: bool = False):
     """4h: the deferred frame at real size: the default config with
     fused_shade=False and pair caps tuned for it (the shadow pass uncull'd),
-    the fly-through (K1 twice a frame, no other kernel), each frame not
+    the fly-through (K1 twice and K15 once a frame, no other kernel), each frame not
     black and within 1 LSB of the default path's frame at the same
     viewpoint on >= DEFERRED_NEAR_SHARE of its pixels, frame 19 gated
     against bench_golden.png by the default path's rule. Returns (summary,
@@ -2254,14 +2285,21 @@ def run_viewer():
         page = conn.getresponse()
         if page.status != 200 or b"arctic_tpu viewer" not in page.read():
             raise RuntimeError("6e viewer: / did not serve the page")
+        def front():  # the viewer's cached renderer's CachedFront, once made
+            return getattr(state._cached_render, "front", None)
+
         for name, query, rebuilds in requests:
             cache = state.sun_cache
+            before = front()
+            replays = before.replays if before is not None else 0
             kernels.reset_launch_counts()
             conn.request("GET", "/frame?" + urlencode(query))
             r = conn.getresponse()
             png = r.read()
             torch.cuda.synchronize()
-            counts = kernels.launch_counts()
+            after = front()
+            counts = with_replays(kernels.launch_counts(), after,
+                                  replays if after is before else 0, f"6e viewer {name}")
             if r.status != 200:
                 raise RuntimeError(f"6e viewer {name}: status {r.status}")
             stats = json.loads(r.getheader("X-Stats"))
@@ -2518,6 +2556,71 @@ def run_cli_tiles(glb, want):
     same_frame(load_ldr(out)[..., :3], want, label, "the default tiles' in-process frame")
     log(f"{label}: PNG bit-equal to the default tiles' in-process frame of the GLB; launches "
         f"{counts}")
+
+
+def run_lights16(device):
+    """7e: the benchmark's lights16 configuration through
+    make_cached_renderer_stats over the first LIGHTS16_FRAMES viewpoints of
+    its path (pair caps and sun cache as its entry, raster_cached, makes
+    them; the scene from its generator): every frame and its stats equal to
+    the eager cached frame's, K1, K3, K4, K6 and K15 launched (the graph's
+    replays counted); K15's call of the first frame bit-exact against its
+    plain version, its CUDA-event ms, device ms and byte floor."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+
+    from arctic_tpu_torch.io.build import build_buffers
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.ops import pbr
+    from arctic_tpu_torch.utils import kernels
+    from render_bench import cell, scene, traffic
+    from render_bench.entries import params as frame_params
+    from render_bench.entries import render_config
+    from render_bench.entries.raster import PAIR_CAP_MARGIN
+
+    label = "7e lights16"
+    w = cell.workload(cell.benchmark(), "sponza_1080p.lights16")
+    cfg, mix = cell.config(w["config"]), cell.traffic(w["traffic"])
+    bufs = build_buffers(*scene.generate(cfg), device=device)
+    path = traffic.path(cfg, mix, LIGHTS16_SEED)
+    frames = [frame_params(traffic.frame(path, mix, k)) for k in range(LIGHTS16_FRAMES)]
+    config = pipeline.autotune_pair_caps(
+        bufs, [p for p, _ in frames],
+        render_config(SimpleNamespace(cfg=cfg), sun_frustum_cull=False), margin=PAIR_CAP_MARGIN)
+    config = dataclasses.replace(config, sun_frustum_cull=True)
+    cache, cstats = pipeline.make_sun_cache_builder(config, device)(bufs, frames[0][0])
+    pipeline.check_stats({"cam_pairs": 0, "cam_pair_cap": 1, **cstats})
+    render = pipeline.make_cached_renderer_stats(config, device)
+    with kernels.record_calls() as calls:  # the first frame: the front end eager
+        render(bufs, *frames[0], cache)
+        torch.cuda.synchronize()
+    times, all_stats, imgs, _, mem = fly_through(
+        render, bufs, frames, DEFAULT_PATH, label, cache,
+        absent=("tile_tap_resolve", "window_lut_q", "pcf_eval", "transpose_pack_rows"),
+    )
+    if render.front.replays < LIGHTS16_FRAMES - 1:
+        raise RuntimeError(f"{label}: {render.front.replays} graph replays over "
+                           f"{LIGHTS16_FRAMES} frames")
+    for k, ((params, settings), img, st) in enumerate(zip(frames, imgs, all_stats)):
+        want, wst = pipeline.render_frame_stats(bufs, params, settings, config, cache)
+        same_frame(img, want, f"{label} frame {k}", "the eager cached frame")
+        if int_stats(st) != int_stats(wst):
+            raise RuntimeError(f"{label} frame {k}: stats {int_stats(st)}, eager {int_stats(wst)}")
+    (args, kw), = calls["shade_lights"]
+    if pbr.light_count(args[6], kw.get("count")) != cfg["static_point_lights"]:
+        raise RuntimeError(f"{label}: K15 shaded {pbr.light_count(args[6], kw.get('count'))} lights")
+    k15 = compare_kernels({"shade_lights": calls["shade_lights"]}, label, ("shade_lights",),
+                          timed=("shade_lights",))["shade_lights"]
+    dev_ms = device_ms(lambda: pbr.shade_lights(*args, **kw), 50)
+    log(f"{label}: {LIGHTS16_FRAMES} frames ({render.front.replays} graph replays) bit-equal to "
+        f"the eager cached frames, stats equal; median {statistics.median(times):.3f} ms/frame, "
+        f"{_mem(mem)}; K15 at {args[0].shape[2]} x {args[0].shape[1]} with "
+        f"{cfg['static_point_lights']} lights: bit-exact vs plain, kernel {k15['ms']:.4f} ms "
+        f"(device {dev_ms:.4f} ms), plain {k15['plain_ms']:.4f} ms, floor "
+        f"{k15['bound_ms']:.4f} ms ({k15['bound_by']}), share {k15['bound_ms'] / dev_ms:.2%} "
+        f"of the device time")
 
 
 def once_ms(fn) -> float:
@@ -2837,12 +2940,16 @@ def work(name, args, kw):
         src, s = args
         return 4 * s * s + 4 * (s + 4) * shadow.window_pitch(s), 0
     if name == "shade_lights":
-        from arctic_tpu_torch.core.scene import MAX_POINT_LIGHTS
+        import inspect
+
         from arctic_tpu_torch.ops import pbr
 
-        wp, params, spotlights, visibility = args[0], args[6], args[7], args[8]
+        call = inspect.signature(pbr.shade_lights_plain).bind(*args, **kw)
+        call.apply_defaults()
+        wp, params = call.arguments["wp"], call.arguments["params"]
+        spotlights, visibility = call.arguments["spotlights"], call.arguments["visibility"]
         px = wp.shape[1] * wp.shape[2]
-        lights = min(params.point_lights.count, MAX_POINT_LIGHTS)
+        lights = pbr.light_count(params, call.arguments["count"])
         cones = spotlights and params.point_lights.spot_dir is not None
         rows = 0 if visibility is None else lights
         per_light = K15_TERM_OPS + K15_LIGHT_OPS + (K15_CONE_OPS if cones else 0) + bool(rows)
@@ -3234,6 +3341,7 @@ def main() -> int:
     run_entry_tiles(entry_img)
     run_real_tile_slabs(bufs, run_real_tiles(bufs, real0, qreal0, qconfig), real0)
     run_cli_tiles(cli_glb, cli_img)
+    run_lights16(dev)
     own = ("window_lut_q", "pcf_eval")
     entry_cmps = [
         compare_kernels(entry_calls, "entry", DEFAULT_PATH),

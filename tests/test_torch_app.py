@@ -396,3 +396,54 @@ def test_named_scope_enters_no_range_with_the_profiler_off(monkeypatch):
         with profiling.named_scope("on"):
             torch.ones(4).sum()
     assert entered == ["on"] and "on" in {e.name for e in prof.events()}
+
+
+def test_raster_frame_lights_in_one_range_then_sky_composite(monkeypatch):
+    """Under torch.profiler, the raster frame's top-level ranges are
+    shadow_pass, forward_visibility, pcf_shadow, forward_shade_skybox and
+    post_process, and forward_shade_skybox holds pbr_lights and
+    sky_composite, one after another; the K15 call (here its plain
+    version, inside a range of the test's own) is all that pbr_lights
+    holds, and the IBL term and the composite lie in sky_composite. The
+    frame is bit-equal to the unprofiled one."""
+    bufs = build.build_buffers(*procedural.cornell_like_scene(), tri_bucket=256, device="cpu")
+    params = default_scene_params(aspect=W / H)
+    params.camera = make_camera(EYE, ROT, W / H)
+    config = RenderConfig(width=W, height=H, shadow_size=SHADOW, ibl_specular=True)
+    want, _ = pipeline.render_frame_stats(bufs, params, default_settings(), config)
+    shade_lights = pipeline.shade_lights
+
+    def k15(*args, **kwargs):
+        with torch.profiler.record_function("k15"):
+            return shade_lights(*args, **kwargs)
+
+    monkeypatch.setattr(pipeline, "shade_lights", k15)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got, _ = pipeline.render_frame_stats(bufs, params, default_settings(), config)
+    assert torch.equal(got, want)
+    events = prof.events()
+    ranges = [e for e in events if e.is_user_annotation]
+
+    def scope(e):
+        """The innermost user range above e."""
+        e = e.cpu_parent
+        while e is not None and e not in ranges:
+            e = e.cpu_parent
+        return e
+
+    def in_order(rs):
+        rs = sorted(rs, key=lambda e: e.time_range.start)
+        assert all(a.time_range.end <= b.time_range.start for a, b in zip(rs, rs[1:]))
+        return rs
+
+    top = in_order(e for e in ranges if scope(e) is None)
+    assert [e.name for e in top] == ["shadow_pass", "forward_visibility", "pcf_shadow",
+                                     "forward_shade_skybox", "post_process"]
+    inner = in_order(e for e in ranges if scope(e) is top[3])
+    assert [e.name for e in inner] == ["pbr_lights", "sky_composite"]
+    [k15_range] = [e for e in ranges if e.name == "k15"]
+    assert scope(k15_range) is inner[0]
+    ops = [e for e in events if e.name.startswith("aten::")]
+    assert not [e for e in ops if scope(e) is inner[0]]
+    assert len([e for e in ops if scope(e) is k15_range]) > 100
+    assert {"aten::where", "aten::add"} <= {e.name for e in ops if scope(e) is inner[1]}

@@ -9,7 +9,7 @@ quantised PCF path (pcf_row_cap), on the textured path (the tile atlas,
 forced with tile_threshold_texels=0) and on the full-stack shade-row route
 (a Geometry without slot_static_rows: K10 in place of K3), against the CPU
 frame; and the brute-force and deferred entry frames, which launch no
-kernel and K1 alone.
+kernel, and K1 and K15 alone.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on a machine with the card and no JAX:
@@ -47,10 +47,12 @@ from arctic_tpu_torch.utils import kernels, synthetic
 pytestmark = pytest.mark.cuda
 
 W, H, SHADOW = 256, 192, 256
-DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve")
+DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve", "shade_lights")
 QUANT_PATH = DEFAULT_PATH + ("window_lut_q", "pcf_eval")
-TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve")
-FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve")
+TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve",
+            "shade_lights")
+FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve",
+             "shade_lights")
 ROWS = (W // 64) * (H // 64) * 32  # every 128-pixel row of the frame
 
 
@@ -150,17 +152,17 @@ def test_full_stack_frame_matches_default_frame(entry_run, full_run):
 
 @pytest.mark.parametrize("field,value", [("force_bruteforce", True), ("fused_shade", False)])
 def test_bruteforce_and_deferred_frames_match_cpu(cuda, field, value):
-    """The brute-force frame launches no kernel, the deferred frame K1 alone
-    (shadow and camera pass); each is within 1 LSB of its CPU frame on < 1%
-    of the values, with equal stats."""
+    """The brute-force frame launches no kernel, the deferred frame K1 (shadow
+    and camera pass) and K15 (its lights) alone; each is within 1 LSB of its
+    CPU frame on < 1% of the values, with equal stats."""
     config, bufs, params, settings = _entry(cuda)
     config = dataclasses.replace(config, **{field: value})
     kernels.reset_launch_counts()
     img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts == {k: 2 if k == "raster_tiles" and field == "fused_shade" else 0
-                      for k in counts}
+    deferred = {"raster_tiles": 2, "shade_lights": 1} if field == "fused_shade" else {}
+    assert counts == {k: deferred.get(k, 0) for k in counts}
     cpu_img, cpu_stats = pipeline.render_frame_stats(*_entry("cpu")[1:], config)
     d = (img.cpu().to(torch.int32) - cpu_img.to(torch.int32)).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01

@@ -148,7 +148,7 @@ def test_frames_within_one_lsb_of_jax(route, frame):
     assert d.max() <= 1 and (d > 0).mean() < 0.01, (d.max(), (d > 0).mean())
     assert "tap_resolve" not in calls and "tile_tap_resolve" not in calls
     if frame == "fused":
-        assert set(calls) == {"raster_tiles", "pack_shade_rows", "select_interp"}
+        assert set(calls) == {"raster_tiles", "pack_shade_rows", "select_interp", "shade_lights"}
 
 
 def test_per_slot_frame_against_the_oracle():
