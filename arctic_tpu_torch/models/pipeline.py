@@ -17,7 +17,7 @@ point lights and ambient -> skybox composite -> f16 HDR round
 tiles of the sun-cull rect (``sun_frustum_cull``). Each pass can raster a
 slab of tile rows (parallel/sharding.py).
 
-The PCF takes the exact f32 runs path by default. With
+The PCF takes the exact f32 runs path (K16) by default. With
 ``RenderConfig.pcf_row_cap`` it takes the quantised path: K7 builds the u16
 window table from K1's row-major depth buffer in place (the JAX package's
 lut_rows raster), a min/max pyramid classifies 128-pixel rows of the
@@ -29,8 +29,8 @@ The deferred frame (``fused_shade=False``): the whole shadow map and the
 camera pass through binning + K1, a per-slot shade table (build_shade_table)
 gathered per pixel by slot id, the material tap (material_taps: the
 combined quad rows K6 reads, the unmerged combined quads or the per-slot
-atlas), the exact f32 runs PCF at the pixel's light-space
-position, the same lights and composite; all of it but K1 in plain torch.
+atlas), the exact f32 runs PCF (K16) at the pixel's light-space
+position, the same lights (K15) and composite; the rest in plain torch.
 The brute-force frame (``force_bruteforce``) is the deferred frame over the
 raster oracle (ops/raster.rasterize_bruteforce) in both passes: no kernel.
 The opt-ins (``spotlights``, ``ibl_specular``) act in both frames.
@@ -643,7 +643,9 @@ def shade(
         pv = params.sun.proj_view().tolist()
         lsp = [pv[i][0] * wp[0] + pv[i][1] * wp[1] + pv[i][2] * wp[2] + pv[i][3]
                for i in range(4)]
-        lit = (1.0 - shadow.pcf_shadow(shadow_map, lsp))[None]
+        # The divide by w, then the runs path (the brute-force frame: no kernel).
+        runs = shadow.pcf_runs_plain if config.force_bruteforce else shadow.pcf_runs
+        lit = (1.0 - runs(shadow_map, *(c / lsp[3] for c in lsp[:3])))[None]
 
     dx, dy, dz = sky.camera_ray_dirs_cf(params.camera, px, py, config.width, config.height)
     background = torch.stack(sky.sample_environment_cf(

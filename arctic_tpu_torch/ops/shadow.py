@@ -1,5 +1,5 @@
 """Shadow-map PCF — torch port of arctic_tpu/ops/shadow.py:pcf_shadow_proj,
-an exact reproduction of calculate_shadow (forward.hlsl:68-96), around four
+an exact reproduction of calculate_shadow (forward.hlsl:68-96), around five
 CUDA kernels:
 
 - K12 ``window_lut``  (csrc/window_lut.cu) for _lut_kernel: the wrap-padded
@@ -11,6 +11,9 @@ CUDA kernels:
 - K13 ``pcf_resolve`` (csrc/pcf_resolve.cu) for _pcf_resolve_kernel: the
   16 dequantised window texels of each pixel (K8 superseded it; no frame
   calls it, as in the JAX package).
+- K16 ``pcf_runs``    (csrc/pcf_runs.cu) for no TPU kernel: the whole exact
+  f32 runs path (the JAX package's jnp arithmetic, shadow.py:1012-1074,
+  which XLA fuses) in one launch.
 
 Quirks kept: bias 0; 25 taps at fixed +-2 * 0.0001 UV offsets, each a
 bilinear fetch of the depth map through the linear-WRAP sampler (depth is
@@ -479,17 +482,98 @@ def pcf_resolve(lut: torch.Tensor, start_y: torch.Tensor, start_x: torch.Tensor)
 
 
 # --------------------------------------------------------------------------
-# pcf_shadow_proj
+# K16: the runs path
 # --------------------------------------------------------------------------
 
 
-def pcf_shadow(shadow_map: torch.Tensor, light_space_pos) -> torch.Tensor:
-    """Fraction of occluded PCF taps in [0, 1] at clip-space positions under
-    the sun's proj_view, ``light_space_pos`` = (x, y, z, w) planes: the
-    divide by w, then pcf_shadow_proj's exact f32 runs path (the deferred
-    frame's PCF)."""
-    x, y, z, w = light_space_pos
-    return pcf_shadow_proj(shadow_map, x / w, y / w, z / w)
+def _window_coords(x, y, z, s: int):
+    """The light-space NDC planes (x, y, z) on an (s, s) map: the mask of
+    points outside the light frustum, the 4x4 window around each centre tap
+    as its origin in the map padded by 2 wrapped texels a side (start_y,
+    start_x, i32 in [0, s]) and the tap centre in the window (lx, ly, in
+    [1, 2] for points inside)."""
+    u = x * 0.5 + 0.5
+    v = 1.0 - (y * 0.5 + 0.5)
+    outside = (z > 1.0) | (u < 0.0) | (v < 0.0) | (u > 1.0) | (v > 1.0)
+
+    # Texel-space centre tap (D3D: t = uv * size - 0.5).
+    tx = u * s - 0.5
+    ty = v * s - 0.5
+
+    # 4x4 window containing all 25 bilinear taps, in the coordinates of the
+    # map padded by 2 wrapped texels per side.
+    wx = torch.floor(tx).to(torch.int32) - 1
+    wy = torch.floor(ty).to(torch.int32) - 1
+    start_y = torch.clamp(wy + 2, 0, s)
+    start_x = torch.clamp(wx + 2, 0, s)
+    lx = tx - wx.to(torch.float32)  # local coords in the window, in [1, 2)
+    ly = ty - wy.to(torch.float32)
+    return outside, start_y, start_x, lx, ly
+
+
+def pcf_runs_plain(shadow_map: torch.Tensor, x, y, z) -> torch.Tensor:
+    """Plain torch K16: pcf_shadow_proj's exact f32 runs path, the window
+    straight from the (S, S) map, wrapped by index. Returns the occluded
+    share of the 25 taps, 0 outside the light frustum."""
+    s = shadow_map.shape[0]
+    outside, start_y, start_x, lx, ly = _window_coords(x, y, z, s)
+    flat = shadow_map.reshape(-1)
+    sy, sx = start_y.long(), start_x.long()
+    rows = []
+    for r in range(4):
+        ry = ((sy + (r - 2)) % s) * s
+        rows.append(tuple(flat[ry + (sx + (c - 2)) % s] for c in range(4)))
+    shadow = _tap_count(rows, lx, ly, z, tap_offsets(s)) / 25.0
+    return torch.where(outside, 0.0, shadow)
+
+
+def _check_plane(t: torch.Tensor, name: str, shape) -> None:
+    """Raise unless ``t`` is a 2-D f32 CUDA plane of ``shape`` with unit
+    column stride whose rows a 32-bit int offsets."""
+    if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 2 or t.stride(1) != 1:
+        raise ValueError(f"{name}: expected a 2-D f32 CUDA tensor with unit column stride, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}, strides {t.stride()}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if (t.shape[0] - 1) * t.stride(0) + t.shape[1] >= 2**31:
+        raise ValueError(f"{name}: the kernel offsets its rows with 32-bit ints")
+
+
+@kernels.kernel(
+    "pcf_runs", "arctic_tpu_torch/csrc/pcf_runs.cu",
+    "none (the exact f32 runs path, arctic_tpu/ops/shadow.py:1012-1074, jnp arithmetic that "
+    "XLA fuses under jax.jit)",
+    pcf_runs_plain,
+)
+def pcf_runs(shadow_map: torch.Tensor, x, y, z) -> torch.Tensor:
+    """K16: ``pcf_runs_plain`` in one launch for CUDA tensors (the plain
+    version for CPU ones). shadow_map: (S, S) f32, S >= 2; x, y, z: (H, W)
+    f32 planes. Each may be a strided view with unit column stride (a
+    G-buffer lane, K1's tile-padded depth buffer): the kernel reads it in
+    place. Returns the (H, W) f32 shadow fraction."""
+    if not shadow_map.is_cuda:
+        return pcf_runs_plain(shadow_map, x, y, z)
+    s = shadow_map.shape[0]
+    if s < 2:
+        raise ValueError(f"shadow_map: expected S >= 2, got {tuple(shadow_map.shape)}")
+    _check_plane(shadow_map, "shadow_map", (s, s))
+    if x.dim() != 2:
+        raise ValueError(f"x: expected an (H, W) plane, got {tuple(x.shape)}")
+    h, w = x.shape
+    if h * w >= 2**31:
+        raise ValueError("pcf_runs: the kernel indexes the pixels with 32-bit ints")
+    for name, t in (("x", x), ("y", y), ("z", z)):
+        _check_plane(t, name, (h, w))
+    out = torch.empty((h, w), dtype=torch.float32, device=shadow_map.device)
+    kernels.launch("arctic_pcf_runs", shadow_map, shadow_map.stride(0), s, x, y, z,
+                   x.stride(0), y.stride(0), z.stride(0), h, w, *tap_offsets(s), out)
+    pcf_runs.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# pcf_shadow_proj
+# --------------------------------------------------------------------------
 
 
 def pcf_shadow_proj(
@@ -499,13 +583,12 @@ def pcf_shadow_proj(
 ):
     """Fraction of occluded PCF taps in [0, 1] at light-space NDC planes
     (x, y, z) (the sun is orthographic: no divide). shadow_map: (S, S) f32
-    depth cleared to 1.0 (a strided view is read in place by the table
-    builds).
+    depth cleared to 1.0 (a strided view is read in place by the kernels).
 
     Routes, by the JAX package's arguments: ``use_lut`` (default: ``row_cap
     is not None``) reads each window from a padded window table, ``quant``
     makes that table the u16 one (K7). Without a table the window comes
-    straight from the map (the runs path); with the f32 table (K12) its 16
+    straight from the map (the runs path, K16); with the f32 table (K12) its 16
     texels are read with no wrap arithmetic, giving the runs path's values
     bit for bit. The u16 table runs exactly when ``row_cap`` is set (either
     without the other raises): x, y, z (and ``care``) are viewed as rows of
@@ -525,36 +608,16 @@ def pcf_shadow_proj(
         raise ValueError("an injected window table or pyramid needs row_cap")
     s = shadow_map.shape[0]
     assert shadow_map.shape == (s, s)
-    u = x * 0.5 + 0.5
-    v = 1.0 - (y * 0.5 + 0.5)
-    outside = (z > 1.0) | (u < 0.0) | (v < 0.0) | (u > 1.0) | (v > 1.0)
-
-    # Texel-space centre tap (D3D: t = uv * size - 0.5).
-    tx = u * s - 0.5
-    ty = v * s - 0.5
-
-    # 4x4 window containing all 25 bilinear taps, in the coordinates of the
-    # map padded by 2 wrapped texels per side.
-    wx = torch.floor(tx).to(torch.int32) - 1
-    wy = torch.floor(ty).to(torch.int32) - 1
-    start_y = torch.clamp(wy + 2, 0, s)
-    start_x = torch.clamp(wx + 2, 0, s)
-    lx = tx - wx.to(torch.float32)  # local coords in the window, in [1, 2)
-    ly = ty - wy.to(torch.float32)
+    if row_cap is None and not use_lut:
+        shadow = pcf_runs(shadow_map, x, y, z)
+        zero = torch.zeros((), dtype=torch.int32, device=shadow.device)
+        return (shadow, zero) if with_rows else shadow
+    outside, start_y, start_x, lx, ly = _window_coords(x, y, z, s)
     offsets = tap_offsets(s)
 
     if row_cap is None:
-        if use_lut:
-            # f32 window table (K12): the window at its padded origin.
-            rows = _read_window(window_lut(shadow_map, s), start_y, start_x)
-        else:
-            # Runs path: the window straight from the map, wrapped by index.
-            flat = shadow_map.reshape(-1)
-            sy, sx = start_y.long(), start_x.long()
-            rows = []
-            for r in range(4):
-                ry = ((sy + (r - 2)) % s) * s
-                rows.append(tuple(flat[ry + (sx + (c - 2)) % s] for c in range(4)))
+        # f32 window table (K12): the window at its padded origin.
+        rows = _read_window(window_lut(shadow_map, s), start_y, start_x)
         shadow = _tap_count(rows, lx, ly, z, offsets) / 25.0
         shadow = torch.where(outside, 0.0, shadow)
         zero = torch.zeros((), dtype=torch.int32, device=shadow.device)

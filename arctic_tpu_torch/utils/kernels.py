@@ -58,6 +58,7 @@ _SIGNATURES = {
     # Seven planes, then host pointers to the strides and the packed frame
     # parameters, which the launcher copies into the kernel's arguments.
     "arctic_shade_lights": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    "arctic_pcf_runs": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P),
 }
 # C signatures of the queries (no stream); each returns its cudaError_t.
 _QUERIES = {
@@ -66,6 +67,7 @@ _QUERIES = {
     "arctic_pack_shade_rows_attributes": (_P,),
     "arctic_pack_shade_rows_tm_attributes": (_P,),
     "arctic_shade_lights_attributes": (_P,),
+    "arctic_pcf_runs_attributes": (_P,),
 }
 
 # Every registered kernel wrapper, in registration order.

@@ -54,6 +54,17 @@ K14's 8 x 4 warp tiles, ragged in both directions, and a ray count that is
 no multiple of 32), rays with NaN and infinite components among finite
 ones, and a scene with an infinite vertex (boxes that are not finite: K14
 keeps its NaN tests there).
+
+K16: light-space planes over a map with a block of one depth: points
+outside the light frustum past every side and beyond z = 1, windows that
+wrap at all four map edges and corners, receivers whose depth equals the
+block's filtered depth exactly (no tap counts) or lies one ulp above it
+(every tap counts), and NaN, +-inf, +-0 and |x| up to 1e38 in x, y and z
+(floors the int32 cast saturates). ``frame`` is the lights16 cell's
+1920 x 1088 planes as lanes 14-16 of a (64, H, W + 64) G-buffer, cropped
+to W (a row pitch that is not W), over a 4000^2 map cropped from K1's
+4032-pitch depth buffer; ``s2`` a 2 x 2 map under a 23 x 37 frame; ``odd``
+a 61^2 map under a 37 x 23 frame.
 """
 
 from __future__ import annotations
@@ -579,3 +590,64 @@ def k15_inputs(device, case: str, seed: int = 0):
         visibility = torch.from_numpy(f32(rng.integers(0, 2, (n_lights, *hw)))).to(device)
     return (wp, n, base, mr[1][None], mr[0][None], lit, params, case in ("spot", "visibility"),
             visibility), {}
+
+
+K16_CASES = {"frame": (4000, 1088, 1920), "s2": (2, 23, 37), "odd": (61, 37, 23)}
+# x, y and z values a cast or a compare must take as torch does.
+K16_SPECIALS = (np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 0.9999999, -0.9999999, 1e-40,
+                1.1e6, -1.1e6, 2.0**31, -(2.0**31), 3e9, -3e9, 1e38, -1e38)
+
+
+def k16_inputs(device, case: str, seed: int = 0):
+    """One K16 call's (args, kwargs) for ``case`` on ``device``:
+    (shadow_map, x, y, z) as K16_CASES gives (S, H, W); see the module
+    docstring for what the planes hold."""
+    s, h, w = K16_CASES[case]
+    rng = np.random.default_rng(seed)
+    smap = rng.uniform(0.2, 1.0, (s, s)).astype(np.float32)
+    smap[rng.uniform(size=(s, s)) < 0.3] = 1.0  # cleared texels
+    b0, b1 = s // 2 - max(1, s // 16), s // 2 + max(1, s // 16)
+    depth = np.float32(0.5)
+    smap[b0:b1, b0:b1] = depth
+    x = rng.uniform(-1.05, 1.05, (h, w)).astype(np.float32)
+    y = rng.uniform(-1.05, 1.05, (h, w)).astype(np.float32)
+    z = rng.uniform(0.0, 1.02, (h, w)).astype(np.float32)
+    flat = [a.reshape(-1) for a in (x, y, z)]
+    at = rng.choice(h * w, h * w, replace=False)
+    k = 0
+
+    def put(xv, yv, zv):
+        nonlocal k
+        for a, v in zip(flat, (xv, yv, zv)):
+            a[at[k]] = v
+        k += 1
+
+    # Windows at every edge and corner: u and v at and next to 0 and 1.
+    edges = (-1.0, -0.9999, -0.9995, 0.9995, 0.9999, 1.0)
+    for xv in edges:
+        for yv in edges:
+            put(xv, yv, rng.uniform(0.2, 1.0))
+    # Receivers on the block's depth (centre texel coordinates of the block,
+    # jittered by less than a quarter texel): equal, and one ulp above.
+    centre = (b0 + b1) / 2 / s
+    for j in range(8):
+        u, v = centre + rng.uniform(-0.25, 0.25, 2) / s
+        for zv in (depth, np.nextafter(depth, np.float32(2))):
+            put(2 * u - 1, 1 - 2 * v, zv)
+    for v in K16_SPECIALS:
+        put(v, rng.uniform(-1, 1), rng.uniform(0, 1))
+        put(rng.uniform(-1, 1), v, rng.uniform(0, 1))
+        put(rng.uniform(-1, 1), rng.uniform(-1, 1), v)
+        put(v, v, v)
+    smap_t = torch.from_numpy(smap).to(device)
+    planes = [torch.from_numpy(a).to(device) for a in (x, y, z)]
+    if case == "frame":  # K1's tile-padded depth buffer; G-buffer lanes 14-16
+        pad = -(-s // TILE) * TILE
+        buf = torch.ones((pad, pad), dtype=torch.float32, device=device)
+        buf[:s, :s] = smap_t
+        smap_t = buf[:s, :s]
+        gbuf = torch.zeros((64, h, w + 64), dtype=torch.float32, device=device)
+        for lane, plane in zip((14, 15, 16), planes):
+            gbuf[lane, :, :w] = plane
+        planes = [gbuf[lane, :, :w] for lane in (14, 15, 16)]
+    return (smap_t, *planes), {}

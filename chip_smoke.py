@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (arctic_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--parent DIR]
+    python3 chip_smoke.py --split-in DIR
+
+(``--parent DIR``: phase 7f also measures the checkout at DIR, such as a
+``git archive`` of the parent commit; ``--split-in DIR`` runs 7f's
+measurement alone for the checkout at DIR.)
 
 The real-size default scene comes through bench.py's GLB + HDR round trip
 (phase 4), and the CLI renders a GLB (phase 4g). The per-slot, unmerged
@@ -9,9 +14,10 @@ and grouped texture routes and the ray-traced mode (K14 bvh_trace, K15
 shade_lights) run
 after the others (3i-3l, 4j-4l); then the sharded frame, the viewer and
 the debug checks (6a-6f), and RenderConfig's shadow and camera tiles last
-(7a-7d). Four frame paths are driven first: the default one (exact f32 PCF; kernels K1
-raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve), the
-quantised PCF path of RenderConfig.pcf_row_cap (the same four plus K7
+(7a-7d). Four frame paths are driven first: the default one (kernels K1
+raster_tiles, K3 pack_shade_rows, K4 select_interp, K6 tap_resolve, K15
+shade_lights and, for the exact f32 PCF, K16 pcf_runs), the
+quantised PCF path of RenderConfig.pcf_row_cap (the same but K16, plus K7
 window_lut_q and K8 pcf_eval), with and without a sun cache, the textured
 path of reference-scale texture sets (the u16 tile atlas: K1, K3, K4 and K9
 tile_tap_resolve in place of K6), and the full-stack shade-row route of a
@@ -20,7 +26,7 @@ The f32 window-table PCF (shadow.pcf_shadow_proj(use_lut=True,
 quant=False), K12 window_lut) is driven on a real-size frame's planes. K11
 pack_shade_rows_tm and K13 pcf_resolve have no caller in the frame (as in
 the JAX package) and are held against K3 and K8. The deferred frame
-(fused_shade=False: K1 and plain torch), the brute-force frame
+(fused_shade=False: K1, K16, K15 and plain torch), the brute-force frame
 (force_bruteforce: no kernel) and the opt-in lights (spotlights,
 ibl_specular) run after the CLI phase (3f-3h, 4h, 4i). Phases, each of
 which raises on failure (exit code != 0):
@@ -90,8 +96,8 @@ which raises on failure (exit code != 0):
 3f. the entry frame with force_bruteforce: no kernel launches, within 1
    LSB of the port's CPU brute-force frame and of the default entry frame
    on < 1% of the values, >= 40 dB against the oracle;
-3g. the entry frame with fused_shade=False: K1 twice, K15 once and no
-   other kernel,
+3g. the entry frame with fused_shade=False: K1 twice, K16 and K15 once
+   and no other kernel,
    its ibuf equal to the brute-force raster's on the same setup, its frame
    within 1 LSB of 3f's;
 3h. Cornell with the point light and a spotlight (spotlights=True), fused
@@ -105,18 +111,18 @@ which raises on failure (exit code != 0):
    GLB of 4g, each PNG bit-equal to the in-process frame of its config;
 4h. the deferred frame at real size: the default scene and config with
    fused_shade=False, pair caps tuned for it (the shadow pass uncull'd),
-   the fly-through (K1 twice and K15 once a frame, nothing else), each frame within 1
+   the fly-through (K1 twice, K16 and K15 once a frame, nothing else), each frame within 1
    LSB of the default path's frame at its viewpoint on >= 99% of the
    pixels, frame 19 gated against bench_golden.png by the default path's
    rule;
 4i. the opt-ins at real size on the default path (ibl_specular,
    spotlights, the bench rig plus a spotlight above the nave): the
-   fly-through (K1, K3, K4, K6, K15), frame 0 within 1 LSB of the deferred frame
+   fly-through (K1, K3, K4, K6, K15, K16), frame 0 within 1 LSB of the deferred frame
    with the same options on >= 99% of the pixels;
 3i. (after 4i, as are 3j-3l and 4j-4l, so that every earlier path keeps
    its allocator history) the per-slot route: Cornell with each normal
    map half its diffuse map's size (procedural.per_slot_materials), on
-   the per-slot atlas: K1, K3, K4 and K15 and no other kernel (no K6, no K9),
+   the per-slot atlas: K1, K3, K4, K15 and K16 and no other kernel (no K6, no K9),
    within 1 LSB of the port's CPU frame on < 1% of the values, >= 40 dB
    against the f64 oracle of those materials;
 3j. the unmerged combined route: Cornell with atlas_dtype=torch.float32
@@ -146,7 +152,7 @@ which raises on failure (exit code != 0):
    triangles (the coverage mismatch share printed);
 4l. the per-slot atlas at real size: the bench geometry with 24 materials
    of 192^2 diffuse and 96^2 normal maps, its own tuned caps, the
-   fly-through (K1, K3, K4), frame 0 within 1 LSB of its deferred frame on
+   fly-through (K1, K3, K4, K15, K16), frame 0 within 1 LSB of its deferred frame on
    >= 99% of the pixels; median and peak printed;
 6a. (after 4l, as are 6b-6f) tile-row sharding (parallel/sharding.py) over
    a world of one NCCL rank on the card: the entry frame on the default,
@@ -206,8 +212,17 @@ which raises on failure (exit code != 0):
    make_cached_renderer_stats over the first 10 viewpoints of its path,
    the front end eager, captured and replayed as in 4c: every frame and
    its stats equal to render_frame_stats' eager cached frame, K1, K3, K4,
-   K6 and K15 each launched (counted as in 4c); K15's call bit-exact
+   K6, K15 and K16 each launched (counted as in 4c); K15's call bit-exact
    against its plain version, its CUDA-event ms, device ms and byte floor;
+   K16's call (the K16 gate) bit-exact against its plain version, its
+   CUDA-event ms, device ms, its bytes and f32-operations floors, the
+   plain version's ms, and its registers, spill bytes and blocks a SM;
+7f. the eager lights16 frame's split: 7e's configuration rendered by
+   render_frame_stats (no graph) over 6 traced frames after 2 warm-up
+   ones, in a process of its own, for this checkout and (--parent DIR)
+   for the checkout at DIR: each range's device busy time, device span
+   and ops a frame (pcf_shadow, shadow_pass, forward_visibility,
+   forward_shade_skybox, pbr_lights, sky_composite, post_process);
 5. kernels against their plain torch versions on the card, on the exact
    inputs the entry and real-size frames gave them (recorded; K14 on every
    ray of the real-size calls, frame 0's and the light-shadow frame's; K15
@@ -223,7 +238,7 @@ which raises on failure (exit code != 0):
    frame's own K3 planes (split slot-major / tri-major) and must equal K3's
    table; K13 on the quantised frame 0's K7 table and listed penumbra rows,
    and _tap_count over its planes must equal K8's counts. K1, K3, K6, K8
-   and K11 also run on utils/synthetic.py's inputs (a 20,480-pair tile with
+   and K11 (and K16, synthetic.K16_CASES) also run on utils/synthetic.py's inputs (a 20,480-pair tile with
    ties, duplicates, slivers, z = +-0 and NaN planes; the same planes on a
    depth-only 4000^2 grid; a slot count that is not a multiple of K3's
    block; K11 where slot cap falls inside a block, with a zero tail past
@@ -247,7 +262,7 @@ which raises on failure (exit code != 0):
    (width 0), and the plain run's per-ray visits give the warps' lockstep
    efficiency under both mappings. The registers, spill bytes, block size
    and blocks a SM of K3, K11 (the two instantiations of one kernel
-   template), K14 and K15 are printed and join their kernels-line entries, and
+   template), K14, K15 and K16 are printed and join their kernels-line entries, and
    after the build every kernel function's registers, local bytes and SASS
    instructions (cuobjdump) are printed. The real-size quad
    width and K8's live / listed rows are printed, and the share of the
@@ -302,15 +317,19 @@ GOLDEN_NEAR_SHARE = 0.99
 ENTRY_ROWS = 384
 # Penumbra row cap headroom over frame 0's count at real size.
 CAP_MARGIN = 1.4
-# Every raster frame but the brute-force one lights its pixels with K15.
-DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve", "shade_lights")
-QUANT_PATH = DEFAULT_PATH + ("window_lut_q", "pcf_eval")
-TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve", "shade_lights")
-FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve", "shade_lights")
+# Every raster frame but the brute-force one lights its pixels with K15
+# and, off the quantised path, takes its PCF through K16.
+RASTER_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve", "shade_lights")
+DEFAULT_PATH = RASTER_PATH + ("pcf_runs",)
+QUANT_PATH = RASTER_PATH + ("window_lut_q", "pcf_eval")
+TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve", "shade_lights",
+            "pcf_runs")
+FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve", "shade_lights",
+             "pcf_runs")
 # Kernels with no caller in any frame, as in the JAX package.
 NO_FRAME = ("pack_shade_rows_tm", "pcf_resolve")
 # The deferred frame's kernels; the brute-force frame launches none.
-DEFERRED_PATH = ("raster_tiles", "shade_lights")
+DEFERRED_PATH = ("raster_tiles", "pcf_runs", "shade_lights")
 # The opt-in rig of the entry phases: the parity red point light and a
 # spotlight over the Cornell boxes aimed down (tests/test_spotlights.py:29-30);
 # the spotlight added to the real-size rig.
@@ -322,7 +341,7 @@ REAL_SPOT = ((0.0, 8.0, 0.0), (200.0, 200.0, 200.0), ((0.0, -1.0, 0.0), 20.0, 35
 DEFERRED_NEAR_SHARE = 0.99
 # The per-slot and unmerged routes' kernels (no K6, no K9); the ray-traced
 # frame's kernels (K14 traces, K15 lights).
-PER_SLOT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "shade_lights")
+PER_SLOT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "shade_lights", "pcf_runs")
 RT_PATH = ("bvh_trace", "shade_lights")
 # 3k: tests/test_tex_groups.py's six materials at 128 x 128 in groups of
 # at most 220 tile rows, laid out as three explicit groups.
@@ -360,6 +379,20 @@ VIEWER_MARGIN = 4.0
 # 7e: viewpoints of the lights16 cell's path, and the path's seed.
 LIGHTS16_FRAMES = 10
 LIGHTS16_SEED = 3_000_000_019
+# K16's f32 operations a pixel, ops/shadow.pcf_runs_plain's counted once
+# each (selects not counted): the set-up (u 2, v 3, the 5 outside
+# compares, tx and ty 4, 2 floors, 2 subs to wx / wy, 2 to lx / ly), then
+# _tap_count's 5 y offsets (add, floor, sub) and 25 taps of (add, floor,
+# sub) for x and 3 lerps of 3, the compare and the count's add, then the
+# division. A pixel outside the light frustum needs the set-up alone.
+K16_SETUP_OPS = 20
+K16_PIXEL_OPS = K16_SETUP_OPS + 5 * 3 + 25 * (3 + 9 + 2) + 1
+# 7f: the eager traced lights16 frames: warm-up frames, profiled frames,
+# and the ranges whose device time is read.
+SPLIT_WARM = 2
+SPLIT_FRAMES = 6
+SPLIT_RANGES = ("shadow_pass", "forward_visibility", "pcf_shadow", "forward_shade_skybox",
+                "pbr_lights", "sky_composite", "post_process")
 # 7a: the entry scene at tests/test_torch_tiles.py's tiles (label: path,
 # tile fields); each frame bit-equal to the path's 64 x 64 entry frame.
 TILE_CASES = {
@@ -713,25 +746,17 @@ def run_entry_deferred(bf_img):
 
 
 def with_shadow_factors(fn):
-    """Call ``fn()`` with ops/shadow.pcf_shadow_proj wrapped; returns (its
+    """Call ``fn()`` with the kernel wrappers' calls recorded; returns (its
     result, the sun shadow factors of the one frame it rendered, on the
-    host, cropped by the caller)."""
+    host, cropped by the caller): K16 pcf_runs (the runs PCF of the fused
+    and the deferred frame) again on the frame's recorded inputs."""
     from arctic_tpu_torch.ops import shadow
+    from arctic_tpu_torch.utils import kernels
 
-    seen, orig = [], shadow.pcf_shadow_proj
-
-    def wrapped(*args, **kwargs):
-        out = orig(*args, **kwargs)
-        seen.append(out[0] if isinstance(out, tuple) else out)
-        return out
-
-    shadow.pcf_shadow_proj = wrapped
-    try:
+    with kernels.record_calls() as calls:
         result = fn()
-    finally:
-        shadow.pcf_shadow_proj = orig
-    (factors,) = seen
-    return result, factors.cpu().numpy()
+    (args, kw), = calls["pcf_runs"]
+    return result, shadow.pcf_runs(*args, **kw).cpu().numpy()
 
 
 # A pixel where the fused and deferred PCF factors differ by one tap may
@@ -1442,7 +1467,7 @@ def run_cached(device, bufs, config, uncached, profile: bool = False):
     if pairs > cap:
         raise RuntimeError("the sun cache's shadow pass overflowed its pair buffer")
     times, all_stats, imgs, _, mem = fly_through(
-        render, bufs, frames, DEFAULT_PATH + ("pcf_eval",), "cached real-size", cache,
+        render, bufs, frames, RASTER_PATH + ("pcf_eval",), "cached real-size", cache,
         absent=("tile_tap_resolve", "window_lut_q", "transpose_pack_rows"),
     )
     if profile:
@@ -2558,40 +2583,52 @@ def run_cli_tiles(glb, want):
         f"{counts}")
 
 
-def run_lights16(device):
-    """7e: the benchmark's lights16 configuration through
-    make_cached_renderer_stats over the first LIGHTS16_FRAMES viewpoints of
-    its path (pair caps and sun cache as its entry, raster_cached, makes
-    them; the scene from its generator): every frame and its stats equal to
-    the eager cached frame's, K1, K3, K4, K6 and K15 launched (the graph's
-    replays counted); K15's call of the first frame bit-exact against its
-    plain version, its CUDA-event ms, device ms and byte floor."""
+def lights16_setup(device, n_frames: int):
+    """The benchmark's lights16 configuration as its entry (raster_cached)
+    builds it, on ``device``: (cfg, buffers, the (params, settings) of the
+    first ``n_frames`` viewpoints of its path, the tuned config, the sun
+    cache). Uses only what the parent commit's program has too."""
     import dataclasses
     from types import SimpleNamespace
 
-    import torch
-
     from arctic_tpu_torch.io.build import build_buffers
     from arctic_tpu_torch.models import pipeline
-    from arctic_tpu_torch.ops import pbr
-    from arctic_tpu_torch.utils import kernels
     from render_bench import cell, scene, traffic
     from render_bench.entries import params as frame_params
     from render_bench.entries import render_config
     from render_bench.entries.raster import PAIR_CAP_MARGIN
 
-    label = "7e lights16"
     w = cell.workload(cell.benchmark(), "sponza_1080p.lights16")
     cfg, mix = cell.config(w["config"]), cell.traffic(w["traffic"])
     bufs = build_buffers(*scene.generate(cfg), device=device)
     path = traffic.path(cfg, mix, LIGHTS16_SEED)
-    frames = [frame_params(traffic.frame(path, mix, k)) for k in range(LIGHTS16_FRAMES)]
+    frames = [frame_params(traffic.frame(path, mix, k)) for k in range(n_frames)]
     config = pipeline.autotune_pair_caps(
         bufs, [p for p, _ in frames],
         render_config(SimpleNamespace(cfg=cfg), sun_frustum_cull=False), margin=PAIR_CAP_MARGIN)
     config = dataclasses.replace(config, sun_frustum_cull=True)
     cache, cstats = pipeline.make_sun_cache_builder(config, device)(bufs, frames[0][0])
     pipeline.check_stats({"cam_pairs": 0, "cam_pair_cap": 1, **cstats})
+    return cfg, bufs, frames, config, cache
+
+
+def run_lights16(device):
+    """7e: the benchmark's lights16 configuration through
+    make_cached_renderer_stats over the first LIGHTS16_FRAMES viewpoints of
+    its path (pair caps and sun cache as its entry, raster_cached, makes
+    them; the scene from its generator): every frame and its stats equal to
+    the eager cached frame's, K1, K3, K4, K6, K15 and K16 launched (the
+    graph's replays counted); K15's call of the first frame bit-exact
+    against its plain version, its CUDA-event ms, device ms and byte floor.
+    Returns K16's recorded call of the first frame."""
+    import torch
+
+    from arctic_tpu_torch.models import pipeline
+    from arctic_tpu_torch.ops import pbr
+    from arctic_tpu_torch.utils import kernels
+
+    label = "7e lights16"
+    cfg, bufs, frames, config, cache = lights16_setup(device, LIGHTS16_FRAMES)
     render = pipeline.make_cached_renderer_stats(config, device)
     with kernels.record_calls() as calls:  # the first frame: the front end eager
         render(bufs, *frames[0], cache)
@@ -2621,6 +2658,122 @@ def run_lights16(device):
         f"(device {dev_ms:.4f} ms), plain {k15['plain_ms']:.4f} ms, floor "
         f"{k15['bound_ms']:.4f} ms ({k15['bound_by']}), share {k15['bound_ms'] / dev_ms:.2%} "
         f"of the device time")
+    return calls["pcf_runs"]
+
+
+def k16_gate(calls, label: str) -> dict:
+    """K16 pcf_runs on a frame's recorded call: bit-exact against its plain
+    version, its CUDA-event ms and device ms, the plain version's ms, its
+    bytes and operations floors apart, and its registers, spill bytes,
+    block and blocks a SM from the card's runtime."""
+    import torch
+
+    from arctic_tpu_torch.ops import shadow
+    from arctic_tpu_torch.utils import kernels
+
+    out = compare_kernels({"pcf_runs": calls}, label, ("pcf_runs",),
+                          timed=("pcf_runs",))["pcf_runs"]
+    (args, kw), = calls
+    dev_ms = device_ms(lambda: shadow.pcf_runs(*args, **kw), 50)
+    bytes_ms, ops_ms = bound_ms("pcf_runs", args, kw)
+    attrs = kernels.attributes("arctic_pcf_runs_attributes", torch.device("cuda"))
+    out["extra"] = dict(**attrs, device_ms=dev_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    x = args[1]
+    log(f"K16 gate ({label}) at {x.shape[1]} x {x.shape[0]} over a {args[0].shape[0]}^2 map "
+        f"(row pitches {args[0].stride(0)} / {x.stride(0)}): bit-exact vs plain; kernel "
+        f"{out['ms']:.4f} ms (device {dev_ms:.4f} ms), plain {out['plain_ms']:.4f} ms, floors: "
+        f"bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms; share "
+        f"{out['bound_ms'] / dev_ms:.2%} of the device time; {attrs['registers']} registers and "
+        f"{attrs['spill_bytes']} spill bytes a thread, {attrs['block']}-thread blocks, "
+        f"{attrs['blocks_per_sm']} a SM")
+    return {"pcf_runs": out}
+
+
+def lights16_split() -> dict:
+    """The eager traced lights16 frames of 7f, for the program on sys.path:
+    the configuration as lights16_setup builds it, SPLIT_WARM frames, then
+    SPLIT_FRAMES frames through render_frame_stats (no graph) under
+    torch.profiler. For each of SPLIT_RANGES: its device span (first to
+    last device op launched in it, as render_bench's range readers take
+    it), the device's busy time inside that span and the device ops in it,
+    per frame; and the frames' busy time and ops. The eager frame is paced
+    by the host, so a span holds idle time; its busy time is the pass's
+    device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from arctic_tpu_torch.models import pipeline
+    from render_bench.work.trace import _union
+
+    device = torch.device("cuda")
+    _, bufs, frames, config, cache = lights16_setup(device, SPLIT_WARM + SPLIT_FRAMES)
+    for params, settings in frames[:SPLIT_WARM]:
+        pipeline.render_frame_stats(bufs, params, settings, config, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for params, settings in frames[SPLIT_WARM:]:
+            pipeline.render_frame_stats(bufs, params, settings, config, cache)
+        torch.cuda.synchronize()
+    events = prof.events()
+    ranges = set(SPLIT_RANGES) | {e.name for e in events if e.device_type != DeviceType.CUDA
+                                  and getattr(e, "is_user_annotation", False)}
+    spans, ops = {}, []
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            iv = (e.time_range.start, e.time_range.end)
+            (spans.setdefault(e.name, []) if e.name in ranges else ops).append(iv)
+    ops = np.asarray(ops, np.float64).reshape(-1, 2)
+    busy = _union(ops)
+    n = SPLIT_FRAMES
+    out = {"device": torch.cuda.get_device_name(0), "frames": n,
+           "busy_ms": float((busy[:, 1] - busy[:, 0]).sum()) / 1e3 / n, "ops": len(ops) / n,
+           "ranges": {}}
+    for name in SPLIT_RANGES:
+        span = busy_in = count = 0.0
+        for lo, hi in spans.get(name, []):
+            span += hi - lo
+            busy_in += float(np.clip(np.minimum(busy[:, 1], hi) - np.maximum(busy[:, 0], lo),
+                                     0, None).sum())
+            count += int(((ops[:, 0] >= lo) & (ops[:, 0] < hi)).sum())
+        out["ranges"][name] = {"span_ms": span / 1e3 / n, "busy_ms": busy_in / 1e3 / n,
+                               "ops": count / n}
+    return out
+
+
+def split_main(root: str) -> int:
+    """``--split-in DIR``: lights16_split for the program of the checkout at
+    DIR (this commit's or another's); prints {"split": ...}."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    from arctic_tpu_torch.models import pipeline
+
+    pipeline.use_full_f32()
+    print(json.dumps({"split": lights16_split()}), flush=True)
+    return 0
+
+
+def run_pcf_split(parent: str | None) -> None:
+    """7f: lights16_split for this checkout and, with ``--parent DIR``, for
+    the checkout at DIR (a parent commit's archive), each in a process of
+    its own, one after the other: the eager lights16 frame's device time
+    by range, printed."""
+    for name, root in (("this tree", REPO), ("parent", parent)):
+        if root is None:
+            continue
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--split-in", root],
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            raise RuntimeError(f"7f split of {name} ({root}): exit {proc.returncode}\n"
+                               f"{proc.stderr[-4000:]}")
+        split = json.loads(proc.stdout.strip().splitlines()[-1])["split"]
+        log(f"7f eager lights16 frames of {name}: {split['frames']} traced, device busy "
+            f"{split['busy_ms']:.4f} ms and {split['ops']:.1f} ops a frame")
+        for rng, r in split["ranges"].items():
+            log(f"7f {name} range {rng}: device busy {r['busy_ms']:.4f} ms, span "
+                f"{r['span_ms']:.4f} ms, {r['ops']:.1f} ops a frame")
 
 
 def once_ms(fn) -> float:
@@ -2955,6 +3108,18 @@ def work(name, args, kw):
         per_light = K15_TERM_OPS + K15_LIGHT_OPS + (K15_CONE_OPS if cones else 0) + bool(rows)
         ops = K15_PIXEL_OPS + K15_TERM_OPS + lights * per_light
         return (pbr.SHADE_BYTES + 4 * rows) * px, ops * px
+    if name == "pcf_runs":
+        smap, x, y, z = args
+        s = smap.shape[0]
+        outside, start_y, start_x = shadow._window_coords(x, y, z, s)[:3]
+        inside = ~outside
+        n_in = int(inside.sum())
+        ry = [(start_y[inside].long() + (r - 2)) % s for r in range(4)]
+        cx = [(start_x[inside].long() + (c - 2)) % s for c in range(4)]
+        texels = _distinct(torch.stack([a * s + b for a in ry for b in cx]), s * s)
+        # x, y, z in and the fraction out; the inside pixels' window texels
+        return 16 * x.numel() + 4 * texels, (K16_PIXEL_OPS * n_in
+                                             + K16_SETUP_OPS * (x.numel() - n_in))
     if name == "pcf_resolve":
         lut, start_y, start_x = args
         n = start_y.numel()
@@ -3029,7 +3194,7 @@ def synthetic_calls(device) -> dict:
     """K1 on utils/synthetic.py's 20,480-pair tile (camera layout, ibuf) and
     on the depth-only 4000^2 grid of the same planes, K3 on a slot count
     that is not a multiple of its 32-slot block, K11 on synthetic.K11_CASES,
-    K6 at every quad width,
+    K16 on synthetic.K16_CASES, K6 at every quad width,
     K8 on the pitch = s + 4 map at three rows_used and on lists of several
     passes of its grid (rows_used just below and above a multiple of its
     stride, and the whole list): the calls phase 5 holds bit-exact against
@@ -3058,8 +3223,11 @@ def synthetic_calls(device) -> dict:
         f"{stride} rows, {strided[0][0][1].shape[0]} listed rows, rows_used "
         f"{', '.join(str(int(args[2][0])) for args, _ in strided)}")
     k8 += strided
+    k16 = [synthetic.k16_inputs(device, case) for case in sorted(synthetic.K16_CASES)]
+    log("synthetic inputs: K16 (S, H, W) " + ", ".join(
+        f"{case} {synthetic.K16_CASES[case]}" for case in sorted(synthetic.K16_CASES)))
     return {"raster_tiles": [tile, grid], "pack_shade_rows": [((pf, st, p), {})],
-            "pack_shade_rows_tm": k11, "tap_resolve": k6, "pcf_eval": k8}
+            "pack_shade_rows_tm": k11, "tap_resolve": k6, "pcf_eval": k8, "pcf_runs": k16}
 
 
 def k8_vote(qreal_calls) -> None:
@@ -3341,7 +3509,9 @@ def main() -> int:
     run_entry_tiles(entry_img)
     run_real_tile_slabs(bufs, run_real_tiles(bufs, real0, qreal0, qconfig), real0)
     run_cli_tiles(cli_glb, cli_img)
-    run_lights16(dev)
+    k16_calls = run_lights16(dev)
+    parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
+    run_pcf_split(parent)
     own = ("window_lut_q", "pcf_eval")
     entry_cmps = [
         compare_kernels(entry_calls, "entry", DEFAULT_PATH),
@@ -3383,10 +3553,11 @@ def main() -> int:
                           timed=("pcf_resolve",)),
         "bvh_trace": k14_timing(rreal_calls, rwork),
         **k15_gate(rreal_calls),
+        **k16_gate(k16_calls, "7e lights16"),
     }
     synth = compare_kernels(synthetic_calls(dev), "synthetic",
                             ("raster_tiles", "pack_shade_rows", "pack_shade_rows_tm",
-                             "tap_resolve", "pcf_eval"))
+                             "tap_resolve", "pcf_eval", "pcf_runs"))
     shade_rows_attributes(timing)
     synth.update(compare_kernels(k14_synthetic_calls(dev), "synthetic", RT_PATH))
     (_, k6_kw), = real_calls["tap_resolve"]
@@ -3430,4 +3601,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--split-in" in sys.argv:
+        sys.exit(split_main(sys.argv[sys.argv.index("--split-in") + 1]))
     sys.exit(main())

@@ -190,7 +190,7 @@ def test_kernel_registry_matches_the_sources():
     from arctic_tpu_torch.models import pipeline, raytrace  # noqa: F401 (registers every kernel)
 
     sources = {src.relative_to(REPO).as_posix() for src in kernels.sources()}
-    assert len(kernels.KERNELS) == 13
+    assert len(kernels.KERNELS) == 14
     for fn in kernels.KERNELS:
         assert fn.source in sources, (fn.kernel_name, fn.source)
     text = "".join(open(os.path.join(REPO, src)).read() for src in sources)

@@ -1,6 +1,6 @@
-"""arctic_tpu_torch on the card: the thirteen CUDA kernels against their
-plain torch versions (K1, K3, K6, K8, K11, K14 and K15 also on the synthetic
-inputs of utils/synthetic.py), the ray-traced entry frame (its lighting
+"""arctic_tpu_torch on the card: the fourteen CUDA kernels against their
+plain torch versions (K1, K3, K6, K8, K11, K14, K15 and K16 also on the
+synthetic inputs of utils/synthetic.py), the ray-traced entry frame (its lighting
 through K15 and through the plain version, bit-equal) and the grouped tile
 route (K9 once a group and once for the fallback), the entry frame as 2, 3
 and 8 slabs of tile rows (parallel/sharding.py: K1 and K4 with row0 != 0),
@@ -9,7 +9,8 @@ quantised PCF path (pcf_row_cap), on the textured path (the tile atlas,
 forced with tile_threshold_texels=0) and on the full-stack shade-row route
 (a Geometry without slot_static_rows: K10 in place of K3), against the CPU
 frame; and the brute-force and deferred entry frames, which launch no
-kernel, and K1 and K15 alone.
+kernel, and K1, K16 and K15 alone; and the benchmark's lights16
+configuration through the captured front end, K16 once a frame.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it runs on a machine with the card and no JAX:
@@ -47,12 +48,14 @@ from arctic_tpu_torch.utils import kernels, synthetic
 pytestmark = pytest.mark.cuda
 
 W, H, SHADOW = 256, 192, 256
-DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve", "shade_lights")
-QUANT_PATH = DEFAULT_PATH + ("window_lut_q", "pcf_eval")
+DEFAULT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve", "shade_lights",
+                "pcf_runs")
+QUANT_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tap_resolve", "shade_lights",
+              "window_lut_q", "pcf_eval")
 TEX_PATH = ("raster_tiles", "pack_shade_rows", "select_interp", "tile_tap_resolve",
-            "shade_lights")
+            "shade_lights", "pcf_runs")
 FULL_PATH = ("raster_tiles", "transpose_pack_rows", "select_interp", "tap_resolve",
-             "shade_lights")
+             "shade_lights", "pcf_runs")
 ROWS = (W // 64) * (H // 64) * 32  # every 128-pixel row of the frame
 
 
@@ -117,8 +120,9 @@ def full_run(cuda):
 
 def test_every_kernel_launches(entry_run, quant_run, tex_run, full_run):
     """Each path launches each of its kernels; the default path none of the
-    quantised path's own; K6 and K9 never on the same path; K10 only on the
-    full-stack route, in place of K3; no frame launches K11, K12 or K13."""
+    quantised path's own, the quantised path no K16; K6 and K9 never on the
+    same path; K10 only on the full-stack route, in place of K3; no frame
+    launches K11, K12 or K13."""
     runs = ((entry_run, DEFAULT_PATH), (quant_run, QUANT_PATH), (tex_run, TEX_PATH),
             (full_run, FULL_PATH))
     for run, path in runs:
@@ -126,6 +130,7 @@ def test_every_kernel_launches(entry_run, quant_run, tex_run, full_run):
         for name in ("pack_shade_rows_tm", "window_lut", "pcf_resolve"):
             assert run["counts"][name] == 0, run["counts"]
     assert entry_run["counts"]["window_lut_q"] == entry_run["counts"]["pcf_eval"] == 0
+    assert quant_run["counts"]["pcf_runs"] == 0
     assert entry_run["counts"]["tile_tap_resolve"] == quant_run["counts"]["tile_tap_resolve"] == 0
     assert tex_run["counts"]["tap_resolve"] == 0 and tex_run["counts"]["tile_tap_resolve"] == 1
     assert full_run["counts"]["transpose_pack_rows"] == 1 and full_run["counts"]["pack_shade_rows"] == 0
@@ -153,7 +158,7 @@ def test_full_stack_frame_matches_default_frame(entry_run, full_run):
 @pytest.mark.parametrize("field,value", [("force_bruteforce", True), ("fused_shade", False)])
 def test_bruteforce_and_deferred_frames_match_cpu(cuda, field, value):
     """The brute-force frame launches no kernel, the deferred frame K1 (shadow
-    and camera pass) and K15 (its lights) alone; each is within 1 LSB of its
+    and camera pass), K16 (its PCF) and K15 (its lights) alone; each is within 1 LSB of its
     CPU frame on < 1% of the values, with equal stats."""
     config, bufs, params, settings = _entry(cuda)
     config = dataclasses.replace(config, **{field: value})
@@ -161,7 +166,7 @@ def test_bruteforce_and_deferred_frames_match_cpu(cuda, field, value):
     img, stats = pipeline.render_frame_stats(bufs, params, settings, config)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    deferred = {"raster_tiles": 2, "shade_lights": 1} if field == "fused_shade" else {}
+    deferred = {"raster_tiles": 2, "pcf_runs": 1, "shade_lights": 1} if field == "fused_shade" else {}
     assert counts == {k: deferred.get(k, 0) for k in counts}
     cpu_img, cpu_stats = pipeline.render_frame_stats(*_entry("cpu")[1:], config)
     d = (img.cpu().to(torch.int32) - cpu_img.to(torch.int32)).abs()
@@ -202,7 +207,8 @@ def test_slab_frame_equals_single_card_frame(cuda, world, pcf_row_cap):
                 assert a is None or (a.shape == b.shape and _same(a, b))
 
 
-@pytest.mark.parametrize("name", QUANT_PATH + ("tile_tap_resolve", "transpose_pack_rows"))
+@pytest.mark.parametrize("name", QUANT_PATH + ("tile_tap_resolve", "transpose_pack_rows",
+                                                "pcf_runs"))
 def test_kernel_equals_plain_on_frame_inputs(entry_run, quant_run, tex_run, full_run, name):
     run = (entry_run if name in DEFAULT_PATH else tex_run if name in TEX_PATH
            else full_run if name in FULL_PATH else quant_run)
@@ -692,3 +698,63 @@ def test_grouped_tile_frame_launches_k9_per_group(cuda):
     for args, kw in calls["tile_tap_resolve"]:
         assert _same(sampling.tile_tap_resolve(*args, **kw),
                      sampling.tile_tap_resolve.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("case", sorted(synthetic.K16_CASES))
+def test_k16_equals_plain_on_synthetic_inputs(cuda, case):
+    """K16 pcf_runs on utils/synthetic.py's planes (the lights16 cell's
+    1920 x 1088 G-buffer lanes over a 4000^2 view of K1's padded buffer, a
+    2 x 2 map, a non-square frame; windows wrapping at every edge, points
+    outside on every side, receivers on a filtered depth, NaN / inf / huge
+    values): one launch, bit-exact against the plain version on the card,
+    partial counts among the pixels (count / 25 rounds as torch's does)."""
+    args, kw = synthetic.k16_inputs(cuda, case)
+    kernels.reset_launch_counts()
+    got = shadow.pcf_runs(*args, **kw)
+    torch.cuda.synchronize()
+    assert shadow.pcf_runs.launches == 1
+    want = shadow.pcf_runs_plain(*args, **kw)
+    assert got.shape == want.shape == args[1].shape and got.is_contiguous()
+    assert _same(got, want)
+    # A 2 x 2 map's 25 taps lie 0.0004 texels apart: each pixel counts all or none.
+    partial = bool(((want > 0) & (want < 1)).any()) or case == "s2"
+    assert partial and bool((want == 0).any()) and bool((want == 1).any())
+
+
+def test_k16_wrapper_raises_on_planes_it_does_not_take(cuda):
+    """K16 reads the map and the planes through their row pitches: a plane
+    of another dtype, shape or column stride, a map that is not square or
+    smaller than 2 x 2, or planes on another device raise; nothing falls
+    back."""
+    (smap, x, y, z), _ = synthetic.k16_inputs(cuda, "odd")
+    wide = torch.zeros((x.shape[0], 2 * x.shape[1]), device=cuda)[:, ::2]
+    for args, match in (((smap, x.double(), y, z), "f32"), ((smap, x, y[:, :-1], z), "shape"),
+                        ((smap, x, y, wide), "column stride"), ((smap, x[0], y, z), "plane"),
+                        ((smap[:, :-1], x, y, z), "shape"), ((smap[:1, :1], x, y, z), "S >= 2"),
+                        ((smap, x, y, z.cpu()), "f32 CUDA")):
+        with pytest.raises(ValueError, match=match):
+            shadow.pcf_runs(*args)
+
+
+def test_k16_in_the_captured_lights16_frame(cuda):
+    """The benchmark's lights16 configuration (render_bench/configs/
+    sponza_1080p.json: the atrium hall, 16 lights, the runs PCF against the
+    cached 4000^2 map, 1920 x 1080) through make_cached_renderer_stats over
+    four viewpoints of its path (eager, captured, replayed twice): every
+    frame bit-equal to the eager cached frame, and K16 launched once a
+    frame, the graph's replays included (its wrapper's launches plus the
+    replays times its launches at the capture)."""
+    import chip_smoke
+
+    _, bufs, frames, config, cache = chip_smoke.lights16_setup(cuda, 4)
+    render = pipeline.make_cached_renderer_stats(config, cuda)
+    kernels.reset_launch_counts()
+    got = [render(bufs, p, s, cache) for p, s in frames]
+    torch.cuda.synchronize()
+    launched = shadow.pcf_runs.launches
+    assert render.front.replays == 2 and render.front.captured["pcf_runs"] == 1
+    assert launched + render.front.replays * render.front.captured["pcf_runs"] == len(frames)
+    for (p, s), (img, st) in zip(frames, got):
+        want, wst = pipeline.render_frame_stats(bufs, p, s, config, cache)
+        assert torch.equal(img, want)
+        assert {k: int(v) for k, v in st.items()} == {k: int(v) for k, v in wst.items()}

@@ -44,7 +44,7 @@ from arctic_tpu.ops import sky as jsky
 from arctic_tpu_torch.core.config import RenderConfig
 from arctic_tpu_torch.models import pipeline
 from arctic_tpu_torch.ops import raster, sampling, sky
-from arctic_tpu_torch.utils import convert
+from arctic_tpu_torch.utils import convert, kernels
 
 W, H, SHADOW = 160, 120, 200
 EYE, ROT = [0.0, 4.0, 3.0], [-25.0, -90.0]
@@ -82,17 +82,20 @@ def scene():
 @pytest.fixture(scope="module")
 def frames(scene):
     """The JAX brute-force frame and the port's brute-force, deferred and
-    fused frames with their stats."""
+    fused frames with their stats, and the kernel-wrapper calls each port
+    frame made (``calls``)."""
     jb, jp, js = scene["jax"]
     jc = JRenderConfig(width=W, height=H, shadow_size=SHADOW, force_bruteforce=True)
     jimg, jstats = jax.jit(jpipe.render_frame_stats, static_argnums=3)(jb, jp, js, jc)
-    out = {"jax": (np.asarray(jimg), {k: int(v) for k, v in jstats.items()})}
+    out = {"jax": (np.asarray(jimg), {k: int(v) for k, v in jstats.items()}), "calls": {}}
     tb, tp, ts = scene["port"]
     for name, kw in (("bruteforce", dict(force_bruteforce=True)),
                      ("deferred", dict(fused_shade=False)), ("fused", {})):
         config = RenderConfig(width=W, height=H, shadow_size=SHADOW, **kw)
-        img, stats = pipeline.render_frame_stats(tb, tp, ts, config)
+        with kernels.record_calls() as calls:
+            img, stats = pipeline.render_frame_stats(tb, tp, ts, config)
         out[name] = (img.numpy(), {k: int(v) for k, v in stats.items()})
+        out["calls"][name] = {k: len(v) for k, v in calls.items()}
     return out
 
 
@@ -208,6 +211,15 @@ def test_deferred_frame_equals_bruteforce(frames):
     pipeline.check_stats(stats)
     assert 0 < stats["cam_pairs"] <= stats["cam_pair_cap"]
     assert stats["pcf_rows"] == 0 and stats["pcf_row_cap"] == 1
+
+
+def test_frames_call_their_kernel_wrappers(frames):
+    """The brute-force frame calls no kernel wrapper (its PCF and lights are
+    the plain versions); the deferred frame K1 for its two passes, K16 for
+    its PCF and K15 for its lights; the fused frame K16 once."""
+    assert frames["calls"]["bruteforce"] == {}
+    assert frames["calls"]["deferred"] == {"raster_tiles": 2, "pcf_runs": 1, "shade_lights": 1}
+    assert frames["calls"]["fused"]["pcf_runs"] == 1
 
 
 def test_fused_frame_within_one_lsb_of_bruteforce(frames):

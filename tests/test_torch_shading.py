@@ -1,5 +1,6 @@
 """arctic_tpu_torch shading ops held against the JAX package on seeded
-inputs: the f32 runs-path PCF, the plain version of K6 (tap_resolve), the
+inputs: the f32 runs-path PCF (K16's wrapper and plain version on CPU
+tensors too), the plain version of K6 (tap_resolve), the
 sky and the channel-first PBR.
 
 Tolerances:
@@ -44,7 +45,7 @@ def _close(got, want, rel=1e-6):
     assert np.abs(got - want).max() <= rel * scale, np.abs(got - want).max() / scale
 
 
-@pytest.mark.parametrize("size", [48, 61])
+@pytest.mark.parametrize("size", [48, 61, 2])
 def test_pcf_runs_path_exact(size):
     rng = np.random.default_rng(size)
     smap = rng.uniform(0.2, 1.0, (size, size)).astype(np.float32)
@@ -58,9 +59,15 @@ def test_pcf_runs_path_exact(size):
     want = np.asarray(
         jshadow.pcf_shadow_proj(jnp.asarray(smap), jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), use_lut=False)
     )
-    got = shadow.pcf_shadow_proj(*(torch.from_numpy(a) for a in (smap, x, y, z))).numpy()
+    args = [torch.from_numpy(a) for a in (smap, x, y, z)]
+    got = shadow.pcf_shadow_proj(*args).numpy()
     assert 0.05 < (want > 0).mean() < 0.95
     np.testing.assert_array_equal(got, want)
+    # K16's wrapper takes its plain version for CPU tensors: the same path.
+    shadow.pcf_runs.launches = 0
+    for fn in (shadow.pcf_runs, shadow.pcf_runs_plain):
+        np.testing.assert_array_equal(fn(*args).numpy(), want)
+    assert shadow.pcf_runs.launches == 0
 
 
 def _regions(rng, n):
